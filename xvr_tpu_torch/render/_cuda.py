@@ -1,0 +1,197 @@
+"""Build, load and launch the hand-written CUDA shear-warp kernels.
+
+The sources live in ``xvr_tpu_torch/csrc/``. On first use they are compiled
+by one ``nvcc`` call into a shared library with a plain C interface
+(``build/`` at the repository root, keyed by a hash of the sources) and
+loaded with ``ctypes``. Nothing here runs at import time, so the module
+imports on a machine without a GPU or ``nvcc``.
+
+Each launch function checks device, dtype, shape and contiguity, allocates
+its outputs with ``torch.empty``, launches on the current CUDA stream,
+raises if the library reports a CUDA error, and adds one to its entry in
+:data:`LAUNCHES`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+SOURCES = (CSRC / "shearwarp.cu",)
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+
+# launches per kernel since the last reset_launches(); read by chip_smoke.py
+# to show that a run went through the kernels
+LAUNCHES = {"sw_accumulate": 0, "sw_warp": 0, "sw_warp_grads": 0, "sw_accumulate_adjoint": 0}
+
+_lib = None
+BUILD_INFO: dict = {}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _nvcc() -> str:
+    for cand in (
+        shutil.which("nvcc"),
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit to build")
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile the kernel sources into ``build/`` unless an up-to-date
+    library is there already; returns its path. ``verbose`` adds
+    ``-Xptxas -v`` and keeps the compiler's report in ``BUILD_INFO``."""
+    digest = hashlib.sha256(b"".join(p.read_bytes() for p in SOURCES)).hexdigest()[:12]
+    out = BUILD_DIR / f"libxvr_shearwarp_{digest}.so"
+    if out.exists() and not verbose:
+        BUILD_INFO.update(path=str(out), seconds=0.0, log="(cached)")
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
+    if verbose:
+        cmd += ["-Xptxas", "-v"]
+    cmd += ["-o", str(tmp), *map(str, SOURCES)]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    secs = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
+    os.replace(tmp, out)
+    BUILD_INFO.update(path=str(out), seconds=secs, log=res.stdout + res.stderr)
+    return out
+
+
+def _load():
+    global _lib
+    if _lib is not None:
+        return _lib
+    lib = ctypes.CDLL(str(build()))
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.sw_accumulate.argtypes = [P, I, I, P, P, I, I, I, F, I, I, P]
+    lib.sw_warp.argtypes = [P, P, P, P, P, I, I, I, I, P]
+    lib.sw_warp_grads.argtypes = [P, P, P, P, P, P, P, I, I, I, I, P]
+    lib.sw_adjoint_partials_shape.argtypes = [I, I, ctypes.POINTER(I), ctypes.POINTER(I)]
+    lib.sw_accumulate_adjoint.argtypes = [P, I, I, P, P, P, P, P, P, I, I, I, F, I, I, P]
+    for fn in ("sw_accumulate", "sw_warp", "sw_warp_grads", "sw_adjoint_partials_shape",
+               "sw_accumulate_adjoint"):
+        getattr(lib, fn).restype = I
+    _lib = lib
+    return lib
+
+
+def _check(x: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple, device) -> None:
+    if x.device != device:
+        raise ValueError(f"{name} is on {x.device}, expected {device}")
+    if x.dtype != dtype:
+        raise TypeError(f"{name} has dtype {x.dtype}, expected {dtype}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {tuple(shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _raise_on(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+def _stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def accumulate(vol, params, *, Iu: int, Iv: int, eps: float, k0: int, k1: int) -> torch.Tensor:
+    """K1. ``vol`` (M, Wd, L) bf16, ``params`` (B, 8) f32
+    ``[s0, s1, s2, sgn, u0, du, v0, dv]`` -> (B, Iu, Iv) f32."""
+    lib = _load()
+    dev = vol.device
+    M, Wd, L = vol.shape
+    B = params.shape[0]
+    _check(vol, "vol", torch.bfloat16, (M, Wd, L), dev)
+    _check(params, "params", torch.float32, (B, 8), dev)
+    if not 0 <= k0 <= k1 <= M:
+        raise ValueError(f"slab bounds [{k0}, {k1}) outside [0, {M}]")
+    out = torch.empty((B, Iu, Iv), dtype=torch.float32, device=dev)
+    err = lib.sw_accumulate(vol.data_ptr(), Wd, L, params.data_ptr(), out.data_ptr(), B, Iu, Iv,
+                            float(eps), int(k0), int(k1), _stream(dev))
+    _raise_on(err, "sw_accumulate")
+    LAUNCHES["sw_accumulate"] += 1
+    return out
+
+
+def _warp_inputs(I, uc, vc, ws):
+    dev = I.device
+    B, Iu, Iv = I.shape
+    R = uc.shape[1]
+    _check(I, "I", torch.float32, (B, Iu, Iv), dev)
+    for name, x in (("uc", uc), ("vc", vc), ("ws", ws)):
+        _check(x, name, torch.float32, (B, R), dev)
+    return dev, B, Iu, Iv, R
+
+
+def warp(I, uc, vc, ws) -> torch.Tensor:
+    """K2. Slope image ``I`` (B, Iu, Iv) f32 sampled at (uc, vc) (B, R),
+    times ``ws`` -> (B, R) f32."""
+    lib = _load()
+    dev, B, Iu, Iv, R = _warp_inputs(I, uc, vc, ws)
+    out = torch.empty((B, R), dtype=torch.float32, device=dev)
+    err = lib.sw_warp(I.data_ptr(), uc.data_ptr(), vc.data_ptr(), ws.data_ptr(), out.data_ptr(),
+                      B, Iu, Iv, R, _stream(dev))
+    _raise_on(err, "sw_warp")
+    LAUNCHES["sw_warp"] += 1
+    return out
+
+
+def warp_with_grads(I, uc, vc, ws):
+    """K3. (bilerp, d/duc, d/dvc), each (B, R) f32; ``ws`` only masks."""
+    lib = _load()
+    dev, B, Iu, Iv, R = _warp_inputs(I, uc, vc, ws)
+    outs = [torch.empty((B, R), dtype=torch.float32, device=dev) for _ in range(3)]
+    err = lib.sw_warp_grads(I.data_ptr(), uc.data_ptr(), vc.data_ptr(), ws.data_ptr(),
+                            *(o.data_ptr() for o in outs), B, Iu, Iv, R, _stream(dev))
+    _raise_on(err, "sw_warp_grads")
+    LAUNCHES["sw_warp_grads"] += 1
+    return tuple(outs)
+
+
+def accumulate_adjoint(vol, params, ibar, *, eps: float, k0: int, k1: int):
+    """K4. ``ibar`` (B, Iu, Iv) bf16 -> per-row cotangent sums
+    gw (B, Iu) and gl (B, Iv), f32."""
+    lib = _load()
+    dev = vol.device
+    M, Wd, L = vol.shape
+    B, Iu, Iv = ibar.shape
+    _check(vol, "vol", torch.bfloat16, (M, Wd, L), dev)
+    _check(params, "params", torch.float32, (B, 8), dev)
+    _check(ibar, "ibar", torch.bfloat16, (B, Iu, Iv), dev)
+    if not 0 <= k0 <= k1 <= M:
+        raise ValueError(f"slab bounds [{k0}, {k1}) outside [0, {M}]")
+    nbx, nby = ctypes.c_int(), ctypes.c_int()
+    lib.sw_adjoint_partials_shape(Iu, Iv, ctypes.byref(nbx), ctypes.byref(nby))
+    part_gw = torch.empty((B, Iu, nbx.value), dtype=torch.float64, device=dev)
+    part_gl = torch.empty((B, Iv, nby.value), dtype=torch.float64, device=dev)
+    gw = torch.empty((B, Iu), dtype=torch.float32, device=dev)
+    gl = torch.empty((B, Iv), dtype=torch.float32, device=dev)
+    err = lib.sw_accumulate_adjoint(
+        vol.data_ptr(), Wd, L, params.data_ptr(), ibar.data_ptr(), part_gw.data_ptr(),
+        part_gl.data_ptr(), gw.data_ptr(), gl.data_ptr(), B, Iu, Iv, float(eps), int(k0),
+        int(k1), _stream(dev),
+    )
+    _raise_on(err, "sw_accumulate_adjoint")
+    LAUNCHES["sw_accumulate_adjoint"] += 1
+    return gw, gl

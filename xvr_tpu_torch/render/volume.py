@@ -1,0 +1,74 @@
+"""CT/MR volume representation and HU -> attenuation transfer.
+
+Counterpart of ``xvr_tpu.render.volume``. A :class:`Volume` holds the raw
+intensity grid (indexed ``data[i, j, k]``), an affine mapping voxel indices to
+world millimetres and an optional integer labelmap, all on one device. Voxel
+centres sit at integer indices; the volume spans ``[-0.5, n - 0.5]`` along
+each axis in index space.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from ..geometry.se3 import RigidTransform, make_matrix
+
+
+@dataclass(frozen=True)
+class Volume:
+    """Intensity volume + voxel->world affine (+ optional labelmap)."""
+
+    data: torch.Tensor  # (nx, ny, nz) raw intensities (HU for CT)
+    affine: torch.Tensor  # (4, 4) voxel index -> world mm
+    mask: torch.Tensor | None = None  # (nx, ny, nz) integer labels
+    orientation: str | None = "AP"
+
+    @property
+    def shape(self):
+        return tuple(self.data.shape)
+
+    @property
+    def device(self) -> torch.device:
+        return self.data.device
+
+    @property
+    def affine_inverse(self) -> torch.Tensor:
+        # inv_ex: no host synchronisation for the error check on every render
+        return torch.linalg.inv_ex(self.affine)[0]
+
+    @property
+    def spacing(self) -> torch.Tensor:
+        return torch.linalg.norm(self.affine[:3, :3], dim=0)
+
+    @property
+    def center(self) -> torch.Tensor:
+        """World coordinates of the central voxel index ``(n - 1) / 2``."""
+        idx = (torch.tensor(self.data.shape, dtype=self.affine.dtype, device=self.device) - 1.0) / 2.0
+        return self.affine[:3, :3] @ idx + self.affine[:3, 3]
+
+    def center_translation(self) -> RigidTransform:
+        eye = torch.eye(3, dtype=self.affine.dtype, device=self.device)
+        return RigidTransform(make_matrix(eye, self.center))
+
+    def world_to_voxel(self, pts: torch.Tensor) -> torch.Tensor:
+        Ainv = self.affine_inverse
+        return pts @ Ainv[:3, :3].T + Ainv[:3, 3]
+
+
+def transform_hu_to_density(volume: torch.Tensor, bone_attenuation_multiplier: float = 1.0) -> torch.Tensor:
+    """Piecewise HU -> relative attenuation, min-max rescaled to [0, 1]:
+    air (<= -800 HU) maps to the soft-tissue floor, soft tissue passes
+    through, bone (> 350 HU) is scaled by the multiplier."""
+    v = volume.to(torch.float32)
+    air = v <= -800.0
+    bone = v > 350.0
+    big = torch.finfo(torch.float32).max
+    soft_min = torch.where(air, torch.full_like(v, big), v).min()
+    if not (torch.isfinite(soft_min) and soft_min < big):
+        soft_min = torch.tensor(-800.0, device=v.device)
+    density = torch.where(air, soft_min, v)
+    density = torch.where(bone, v * bone_attenuation_multiplier, density)
+    density = density - density.min()
+    return density / torch.clamp(density.max(), min=1e-12)
