@@ -1,21 +1,29 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Builds the hand-written shear-warp kernels from ``xvr_tpu_torch/csrc``, holds
-each kernel against its plain PyTorch version at the shapes of the
-registration path, then drives that path once through its user entry point,
-``xvr_tpu_torch.registrar.RegistrarFixed(...).run(xray)``, on the bench
-scene: a 256^3 CT (384 mm extent, 1.5 mm voxels) and a 1436^2 DICOM X-ray
-(sdd 1020, 0.194 mm pixels, crop 100), scales 24,12,6 with a 16-seed coarse
-sweep, 4 restart seeds and one re-anneal, from a ~4 mm initial error.
+Builds the hand-written kernels from ``xvr_tpu_torch/csrc`` (shear-warp K1-K4
+and slab march K5-K8), holds each kernel against its plain PyTorch version
+at the shapes of the paths that run it, then drives those paths through
+their user entry points on the bench scene: a 256^3 CT (384 mm extent,
+1.5 mm voxels) and a 1436^2 DICOM X-ray (sdd 1020, 0.194 mm pixels, crop
+100). ``xvr_tpu_torch.registrar.RegistrarFixed(...).run(xray)`` registers it
+twice with scales 24,12,6, a 16-seed coarse sweep, 4 restart seeds and one
+re-anneal, from a ~4 mm initial error: once through shear-warp (K1-K4), once
+under XVR_NO_SHEARWARP=1 through the slab kernels (K5, K6). A labelmap render
+through ``Projector(labels=...)`` runs K7 (and K6 for its gradient) and a
+``siddon_pallas`` render of the ground-truth pose runs K8.
 
 Phases (each prints one or more lines; any failure exits non-zero):
 
-1. device   card name and power limit (nvidia-smi)
-2. build    nvcc seconds and the -Xptxas -v report
-3. kernels  K1-K4 against their plain versions: max error and tolerance,
-            kernel / plain / library times (CUDA events) and the bound
-4. slice    GT render, registration, launches of K1-K4 during it, mTRE
+1. device    card name and power limit (nvidia-smi)
+2. build     nvcc seconds and the -Xptxas -v report of all eight kernels
+3. kernels   K1-K8 against their plain versions: max error and tolerance,
+             kernel / plain / library times (CUDA events) and the bound;
+             K6 also against a finite difference of K5; then each kernel's
+             device time from torch.profiler
+4. slices    GT render; the shear-warp and slab registrations, each with the
+             launch counts of its own run and its mTRE; the label and Siddon
+             renders, each with its launch counts
 
 The line before the last is one JSON object with a record per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -26,22 +34,44 @@ Usage: python3 chip_smoke.py
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import tempfile
 import time
+from functools import partial
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
-SOURCE = "xvr_tpu_torch/csrc/shearwarp.cu"
+SW_SOURCE = "xvr_tpu_torch/csrc/shearwarp.cu"
+SLAB_SOURCE = "xvr_tpu_torch/csrc/slab.cu"
 REPLACES = {
     "sw_accumulate": "xvr_tpu/render/shearwarp.py:222",
     "sw_warp": "xvr_tpu/render/shearwarp.py:368",
     "sw_warp_grads": "xvr_tpu/render/shearwarp.py:400",
     "sw_accumulate_adjoint": "xvr_tpu/render/shearwarp.py:955",
+    "slab_forward": "xvr_tpu/render/pallas.py:92",
+    "slab_backward": "xvr_tpu/render/pallas.py:485",
+    "slab_channels": "xvr_tpu/render/pallas.py:324",
+    "slab_siddon": "xvr_tpu/render/pallas.py:200",
 }
+# device kernels each wrapper launches, for the profiler's per-kernel times
+DEVICE_KERNELS = {
+    "sw_accumulate": ("sw_accumulate_kernel",),
+    "sw_warp": ("sw_warp_kernel",),
+    "sw_warp_grads": ("sw_warp_grads_kernel",),
+    "sw_accumulate_adjoint": ("sw_adjoint_kernel", "sw_sum_partials_kernel"),
+    "slab_forward": ("slab_forward_kernel",),
+    "slab_backward": ("slab_backward_kernel",),
+    "slab_channels": ("slab_channels_kernel",),
+    "slab_siddon": ("slab_siddon_kernel",),
+}
+# f32 operations per evaluated (ray, plane) pair, counted from slab.cu:
+# arithmetic, min/max, abs, floor and rint; compares, selects, conversions
+# and loads not counted
+SLAB_OPS = {"slab_forward": 37, "slab_backward": 121, "slab_channels": 40, "slab_siddon": 48}
 
 
 def log(*a):
@@ -70,6 +100,41 @@ def cuda_time_ms(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def profiler_ms(calls: dict, reps: int = 10) -> dict:
+    """Device time per call of each wrapper in ``calls`` (name -> fn) from
+    torch.profiler: the CUDA activity's time of the wrapper's kernels, summed
+    by kernel name, over ``reps`` calls. -> name -> ms, or None for every
+    name when the profiler records no device time on this machine."""
+    import re
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for fn in calls.values():
+        fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for fn in calls.values():
+                for _ in range(reps):
+                    fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+    except Exception as exc:  # the profiler is a measurement, not a phase of the path
+        log(f"  profiler: unavailable ({type(exc).__name__}: {exc})")
+        return dict.fromkeys(calls)
+    totals = dict.fromkeys(calls, 0.0)
+    for ev in events:
+        t = float(getattr(ev, "device_time_total", 0) or getattr(ev, "self_device_time_total", 0))
+        for name in calls:
+            if any(re.search(rf"\b{k}\b", ev.key) for k in DEVICE_KERNELS[name]):
+                totals[name] += t
+    if not any(totals.values()):
+        log("  profiler: no device time recorded; keeping the CUDA-event times only")
+        return dict.fromkeys(calls)
+    return {name: totals[name] / 1e3 / reps for name in calls}
 
 
 # ---------------------------------------------------------------------------
@@ -201,7 +266,7 @@ def phase_kernels(projector, pose16, pose4, time_ms=cuda_time_ms):
 
     vol = projector.prepare_for_shearwarp()
     M, Wd, L = vol.shape
-    records = {}
+    records, calls = {}, {}
     s_coarse, _, s_fine = _parse_scales("24,12,6", 100, projector.detector.height)
     cases = [("coarse B=16", pose16, s_coarse), ("fine B=4", pose4, s_fine)]
 
@@ -242,6 +307,13 @@ def phase_kernels(projector, pose16, pose4, time_ms=cuda_time_ms):
 
             # times at this shape (eps 1.0)
             reps = 20
+            calls.update(  # bound now: the loop variables move on
+                sw_accumulate=partial(sw.accumulate, vol, *args, Iu=Iu, Iv=Iv, eps=eps),
+                sw_accumulate_adjoint=partial(sw.accumulate_adjoint, vol, *args, ibar, Iu=Iu,
+                                              Iv=Iv, eps=eps),
+                sw_warp=partial(sw.warp, k1, *warp_args),
+                sw_warp_grads=partial(sw.warp_with_grads, k1, *warp_args),
+            )
             t = {
                 "sw_accumulate": (
                     time_ms(lambda: sw.accumulate(vol, *args, Iu=Iu, Iv=Iv, eps=eps), reps),
@@ -287,7 +359,7 @@ def phase_kernels(projector, pose16, pose4, time_ms=cuda_time_ms):
                 nbytes, nops = bounds[name]
                 t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, nops / F32_FLOPS * 1e3
                 rec = dict(
-                    name=name, route="cuda", source=SOURCE, replaces=REPLACES[name],
+                    name=name, route="cuda", source=SW_SOURCE, replaces=REPLACES[name],
                     launches=0, max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
                     bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
                     library_ms=lib_ms, shape=f"B={B} grid={Iu}x{Iv} det={det[0]}x{det[1]} eps={eps}",
@@ -298,33 +370,193 @@ def phase_kernels(projector, pose16, pose4, time_ms=cuda_time_ms):
                     f"{nops / 1e9:.3f} GFLOP)")
                 records.setdefault(name, []).append(rec)
     _cuda.reset_launches()
-    return records
+    return records, calls
+
+
+def slab_pairs(vol_shape, fields) -> tuple[int, int]:
+    """(ray, plane) pairs the slab kernels evaluate for these fields: the
+    trilinear ones (K5-K7: slab weight > 0 and the sample inside the window
+    and lane range) and the Siddon ones (K8: trimmed slab length > 0)."""
+    from xvr_tpu_torch.render import pallas as sp
+
+    M, Wd, L = vol_shape
+    _, inv_d0, abs_d0 = sp._march(fields)
+    half = 0.5 * inv_d0.abs()
+    a_in, a_out = sp._box(fields, vol_shape)
+    tri = sid = 0
+    for k in range(M):
+        _, _, _, valid = sp._slab_sample(fields, k, inv_d0, half, abs_d0, a_in, a_out, Wd, L)
+        alpha = (float(k) - fields[0]) * inv_d0
+        seg = (alpha + half).minimum(a_out) - (alpha - half).maximum(a_in)
+        tri = tri + valid.sum()
+        sid = sid + ((seg > 0) & (fields[6] > 0)).sum()
+    return int(tri), int(sid)
+
+
+FIELDS = ("s0", "s1", "s2", "d0", "d1", "d2", "ws")
+
+
+def phase_slab_kernels(projector, pose16, pose4, labels, chans=(1, 2), time_ms=cuda_time_ms):
+    """K5-K8 against their plain versions at the slab path's shapes (the
+    coarse sweep's B=16 at 60^2 and the fine stage's B=4 at 239^2).
+
+    References: K5 and K8 sum positive terms, so their plain versions run in
+    float64. K6 sums signed terms with tent slopes that flip where a sample
+    crosses a window row, so a one-ulp position change flips a term: its
+    reference is the float32 plain version with every operation rounded as
+    the kernel rounds it, and it is also held against a central difference
+    of the float64 K5 along a random direction. K7's nearest-label rounding jumps at half-integers, so it is
+    held against the float32 plain version, and its channel sum against the
+    float64 K5. Tolerances (atol relative to max|ref|, plus rtol): K5 2e-5 +
+    2e-4 (f32 accumulation over <= 256 planes), K7 1e-5 + 1e-4 and its sum as
+    K5, K6 1e-4 + 1e-3 per field, K8 1e-4 + 1e-3, the difference 1e-2 of the
+    directional derivative.
+
+    -> (records per kernel, one call per kernel at the last shape for the
+    profiler)."""
+    import torch
+    from xvr_tpu_torch.registrar.base import _parse_scales
+    from xvr_tpu_torch.render import _cuda
+    from xvr_tpu_torch.render import pallas as sp
+    from xvr_tpu_torch.render import shearwarp as sw
+
+    vol, vol_shape = projector.pack_for_pallas()
+    M, Wd, L = vol_shape
+    lab = sp.pack_labels(labels, projector.pallas_perm)
+    C = len(chans) + 1
+    records, calls = {}, {}
+    s_coarse, _, s_fine = _parse_scales("24,12,6", 100, projector.detector.height)
+    for label, pose, scale in (("coarse B=16", pose16, s_coarse), ("fine B=4", pose4, s_fine)):
+        proj = projector.rescale_detector(scale)
+        det = (proj.detector.height, proj.detector.width)
+        with torch.no_grad():
+            src, tgt = proj.rays(pose)
+            fields = sp._fields(*sw._decompose(proj.affine_inverse, src, tgt, proj.pallas_perm))
+        _, B, R = fields.shape
+        tag = f"{label} det {det[0]}x{det[1]}"
+        gen = torch.Generator(device=fields.device).manual_seed(2)
+        g = torch.randn((B, R), generator=gen, device=fields.device)
+        f64 = fields.double()
+
+        k5 = sp.slab_forward(vol, fields)
+        r5 = sp._slab_forward(vol, f64)
+        e5 = check("K5 slab_forward", k5.double(), r5, tag, 2e-5 * float(r5.abs().max()), 2e-4)
+
+        k6 = sp.slab_backward(vol, fields, g)
+        r6 = sp._slab_backward(vol, fields, g)
+        e6 = max(check(f"K6 slab_backward[{FIELDS[j]}]", k6[j], r6[j], tag,
+                       1e-4 * float(r6[j].abs().max()), 1e-3) for j in range(7))
+        # distance to float64 arithmetic throughout (positions included)
+        r6_64 = sp._slab_backward(vol, f64, g.double())
+        scale64 = r6_64.abs().amax(dim=(1, 2))[:, None, None]
+        log(f"    vs float64 throughout: max |err| / max |ref| over fields "
+            f"{float(((k6 - r6_64).abs() / scale64).max()):.3e}")
+        # directional derivative against a central difference of K5 on a few rays
+        mid = slice(max(R // 2 - 128, 0), min(R // 2 + 128, R))
+        sub = fields[:, :1, mid].contiguous()
+        e_dir = torch.randn(sub.shape, generator=gen, device=sub.device, dtype=torch.float64)
+        e_dir[6] *= float(sub[6].abs().mean())
+        gs = torch.randn(sub.shape[1:], generator=gen, device=sub.device)
+        an = float((sp.slab_backward(vol, sub, gs).double() * e_dir).sum())
+        h = 1e-6
+        plus = (sp._slab_forward(vol, sub.double() + h * e_dir) * gs).sum()
+        minus = (sp._slab_forward(vol, sub.double() - h * e_dir) * gs).sum()
+        fd = float((plus - minus) / (2 * h))
+        rel = abs(an - fd) / max(abs(fd), 1e-30)
+        log(f"  K6 vs central difference of K5 {tag} ({sub.shape[2]} rays): analytic {an:.6e} "
+            f"fd {fd:.6e} rel {rel:.3e} (< 1e-2) {'OK' if rel < 1e-2 else 'FAIL'}")
+        if not rel < 1e-2:
+            raise AssertionError(f"K6 disagrees with a finite difference of K5 ({rel})")
+
+        k7 = sp.slab_channels(vol, lab, chans, fields)
+        r7 = sp._slab_channels(vol, lab, chans, fields)
+        e7 = check("K7 slab_channels", k7, r7, tag, 1e-5 * float(r7.abs().max()), 1e-4)
+        check("K7 channel sum vs float64 K5", k7.sum(1).double(), r5, tag,
+              2e-5 * float(r5.abs().max()), 2e-4)
+        nonzero = [int((k7[:, c] > 0).sum()) for c in range(C)]
+        log(f"    pixels > 0 per channel: {nonzero}")
+
+        k8 = sp.slab_siddon(vol, fields)
+        r8 = sp._slab_siddon(vol, f64)
+        e8 = check("K8 slab_siddon", k8.double(), r8, tag, 1e-4 * float(r8.abs().max()), 1e-3)
+
+        # times at this shape
+        reps = 20
+        calls.update(  # bound now: the loop variables move on
+            slab_forward=partial(sp.slab_forward, vol, fields),
+            slab_backward=partial(sp.slab_backward, vol, fields, g),
+            slab_channels=partial(sp.slab_channels, vol, lab, chans, fields),
+            slab_siddon=partial(sp.slab_siddon, vol, fields),
+        )
+        plain = dict(
+            slab_forward=partial(sp._slab_forward, vol, fields),
+            slab_backward=partial(sp._slab_backward, vol, fields, g),
+            slab_channels=partial(sp._slab_channels, vol, lab, chans, fields),
+            slab_siddon=partial(sp._slab_siddon, vol, fields),
+        )
+        tri, sid = slab_pairs(vol_shape, fields)
+        vol_b, ray_b = M * Wd * L * 2, B * R * 4
+        bounds = {
+            "slab_forward": (vol_b + 8 * ray_b, SLAB_OPS["slab_forward"] * tri),
+            "slab_backward": (vol_b + 15 * ray_b, SLAB_OPS["slab_backward"] * tri),
+            "slab_channels": (vol_b + M * Wd * L + (7 + C) * ray_b, SLAB_OPS["slab_channels"] * tri),
+            "slab_siddon": (vol_b + 8 * ray_b, SLAB_OPS["slab_siddon"] * sid),
+        }
+        errs = {"slab_forward": e5, "slab_backward": e6, "slab_channels": e7, "slab_siddon": e8}
+        for name in calls:
+            ms, plain_ms = time_ms(calls[name], reps), time_ms(plain[name], 2, warmup=1)
+            nbytes, nops = bounds[name]
+            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, nops / F32_FLOPS * 1e3
+            rec = dict(
+                name=name, route="cuda", source=SLAB_SOURCE, replaces=REPLACES[name],
+                launches=0, max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
+                bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
+                library_ms=None, shape=f"B={B} det={det[0]}x{det[1]} vol={M}x{Wd}x{L}",
+            )
+            log(f"  time {name} [{rec['shape']}]: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}: {nbytes / 1e6:.1f} MB, "
+                f"{nops / 1e9:.3f} GFLOP over {tri if name != 'slab_siddon' else sid} pairs)")
+            records.setdefault(name, []).append(rec)
+    _cuda.reset_launches()
+    return records, calls
 
 
 # ---------------------------------------------------------------------------
-# phase 4: the registration slice
+# phase 4: the slices
 # ---------------------------------------------------------------------------
 
 
-def phase_slice(workdir: Path, hu, aff, fids, dev="cuda", det=1436):
-    """Render the GT X-ray, then register it with the bench's configuration.
-    ``dev`` and ``det`` let the control flow be rehearsed on the CPU at a
-    small detector."""
+def counted(names, fn):
+    """Run ``fn`` with every launch count set to 0 just before it; -> (its
+    result, the counts of ``names`` just after). Fails if one is 0."""
+    import torch
+    from xvr_tpu_torch.render import _cuda
+
+    _cuda.reset_launches()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    out = fn()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    launches = dict(_cuda.LAUNCHES)
+    missing = [k for k in names if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on this path: {missing} ({launches})")
+    return out, launches
+
+
+def write_scene(workdir: Path, hu, aff, dev="cuda", det=1436):
+    """Write the CT and the shear-warp render of the GT pose as a DICOM
+    X-ray; check the fast, slab and Siddon renders against the golden ones
+    at 96^2. -> (GT pose, its shear-warp projector, the GT image)."""
     import numpy as np
     import torch
     from xvr_tpu_torch.geometry import convert
     from xvr_tpu_torch.io import dcmwrite, read, save_nifti
-    from xvr_tpu_torch.registrar import RegistrarFixed
     from xvr_tpu_torch.render import Projector
-    from xvr_tpu_torch.render import _cuda
     from xvr_tpu_torch.render import xla
 
     SDD, H, DELX = 1020.0, det, 0.194 * 1436 / det
-
-    def sync():
-        if dev == "cuda":
-            torch.cuda.synchronize()
-
     t0 = time.perf_counter()
     save_nifti(workdir / "ct.nii.gz", hu, aff)
     vol = read(workdir / "ct.nii.gz", device=dev)
@@ -341,57 +573,147 @@ def phase_slice(workdir: Path, hu, aff, fids, dev="cuda", det=1436):
         raise AssertionError(f"bad GT render: shape {img.shape}, max {img.max()}")
     dcmwrite(workdir / "xray.dcm", (img / img.max() * 60000).astype(np.uint16),
              sdd=SDD, row_spacing=DELX, col_spacing=DELX)
-    log(f"slice: phantom CT + {H}^2 GT X-ray ({gt_proj.renderer}) written in "
+    log(f"slices: phantom CT + {H}^2 GT X-ray ({gt_proj.renderer}) written in "
         f"{time.perf_counter() - t0:.1f} s")
 
-    # the fast render agrees with the golden renderer on a small detector
-    # (the JAX package's bound: max error < 2% of max, correlation > 0.9999)
+    # against the golden renderers on a small detector, with the JAX
+    # package's bounds: trilinear max error < 2% of max and correlation
+    # > 0.9999; Siddon max error < 1% of max (tests/test_pallas.py)
     small = gt_proj.rescale_detector(H / 96)
     with torch.no_grad():
-        fast = small.replace(renderer="trilinear_fast")(gt_pose)
         src, tgt = small.rays(gt_pose)
         gold = xla.raymarch_trilinear(small.density, small.affine_inverse, src, tgt,
-                                      n_samples=512).reshape(fast.shape)
-    rel = float((fast - gold).abs().max() / gold.abs().max())
-    corr = float(np.corrcoef(fast.cpu().numpy().ravel(), gold.cpu().numpy().ravel())[0, 1])
-    log(f"slice: fast vs golden render at 96^2: max rel err {rel:.4f} (< 0.02), corr {corr:.6f} (> 0.9999)")
-    if not (rel < 0.02 and corr > 0.9999):
-        raise AssertionError("fast render disagrees with the golden renderer")
+                                      n_samples=512).reshape(1, 1, 96, 96)
+        gold_s = xla.raymarch_siddon(small.density, small.affine_inverse, src, tgt)
+        renders = {
+            "fast": small.replace(renderer="trilinear_fast")(gt_pose),
+            "slab": small.replace(renderer="trilinear_pallas")(gt_pose),
+        }
+        sid = small.replace(renderer="siddon_pallas")(gt_pose).reshape(gold_s.shape)
+    for name, out in renders.items():
+        rel = float((out - gold).abs().max() / gold.abs().max())
+        corr = float(np.corrcoef(out.cpu().numpy().ravel(), gold.cpu().numpy().ravel())[0, 1])
+        log(f"slices: {name} vs golden trilinear at 96^2: max rel err {rel:.4f} (< 0.02), "
+            f"corr {corr:.6f} (> 0.9999)")
+        if not (rel < 0.02 and corr > 0.9999):
+            raise AssertionError(f"{name} render disagrees with the golden renderer")
+    rel = float((sid - gold_s).abs().max() / gold_s.abs().max())
+    log(f"slices: siddon_pallas vs golden Siddon at 96^2: max rel err {rel:.5f} (< 0.01)")
+    if not rel < 0.01:
+        raise AssertionError("siddon_pallas disagrees with the golden Siddon renderer")
+    return gt_pose, gt_proj, img
+
+
+def register(workdir: Path, gt_pose, fids, renderer, kernels, no_shearwarp=False, dev="cuda",
+             n_itrs="500,500,500"):
+    """Register the scene's X-ray with the bench's configuration from the
+    ~4 mm init, with the launch counts of this run alone. Checks the
+    renderer, that ``kernels`` launched and the others did not, and mTRE
+    < 1 mm. -> (launches, stats)."""
+    import numpy as np
+    from xvr_tpu_torch.registrar import RegistrarFixed
+    from xvr_tpu_torch.render import _cuda
 
     gt_np = gt_pose.matrix[0].cpu().numpy()
     rot0, xyz0 = gt_pose.convert("euler_angles", "ZXY")
     rot_init = (rot0[0].cpu().numpy() + np.deg2rad([0.6, -0.5, 0.4])).tolist()
     xyz_init = (xyz0[0].cpu().numpy() + np.array([2.0, -3.0, 1.5])).tolist()
-    reg = RegistrarFixed(
-        volume=workdir / "ct.nii.gz", mask=None, orientation="AP",
-        rot=rot_init, xyz=xyz_init,
-        linearize=False, scales="24,12,6", n_itrs="500,500,500", crop=100,
-        reverse_x_axis=False, lr_rot=1e-2, lr_xyz=1.0,
-        patience=10, max_n_plateaus=3, verbose=1, coarse_seeds=16, device=dev,
-    )
-    _cuda.reset_launches()
-    sync()
-    t0 = time.perf_counter()
-    out = reg.run(workdir / "xray.dcm")
-    sync()
-    wall = time.perf_counter() - t0
-    launches = dict(_cuda.LAUNCHES)
-    log(f"slice: renderer {reg.projector.renderer}, wall {wall:.2f} s, "
+    saved = os.environ.pop("XVR_NO_SHEARWARP", None)
+    if no_shearwarp:
+        os.environ["XVR_NO_SHEARWARP"] = "1"
+    try:
+        reg = RegistrarFixed(
+            volume=workdir / "ct.nii.gz", mask=None, orientation="AP",
+            rot=rot_init, xyz=xyz_init,
+            linearize=False, scales="24,12,6", n_itrs=n_itrs, crop=100,
+            reverse_x_axis=False, lr_rot=1e-2, lr_xyz=1.0,
+            patience=10, max_n_plateaus=3, verbose=1, coarse_seeds=16, device=dev,
+        )
+        t0 = time.perf_counter()
+        out, launches = counted(kernels, lambda: reg.run(workdir / "xray.dcm"))
+        wall = time.perf_counter() - t0
+    finally:
+        os.environ.pop("XVR_NO_SHEARWARP", None)
+        if saved is not None:
+            os.environ["XVR_NO_SHEARWARP"] = saved
+    tag = f"slice {renderer}"
+    log(f"{tag}: renderer {reg.projector.renderer}, wall {wall:.2f} s, "
         f"launches {json.dumps(launches)}")
     for rec in reg.stage_log:
-        log(f"  stage {rec['stage']} K={rec['K']} {rec['height']}x{rec['width']}: "
-            f"{rec['n_done']} itrs, {rec['ms_per_itr']:.2f} ms/itr")
+        log(f"  stage {rec['stage']} K={rec['K']} {rec['height']}x{rec['width']} "
+            f"{rec['renderer']}: {rec['n_done']} itrs, {rec['ms_per_itr']:.2f} ms/itr")
     m_init = fiducial_mtre(out[3].matrix.cpu().numpy(), gt_np, fids)
     m_final = fiducial_mtre(out[4].matrix.cpu().numpy(), gt_np, fids)
-    log(f"slice: mTRE init {m_init:.3f} mm -> final {m_final:.3f} mm (< 1 mm)")
-    if reg.projector.renderer != "trilinear_fast":
-        raise AssertionError(f"registration ran {reg.projector.renderer}, not trilinear_fast")
-    missing = [k for k, v in launches.items() if v <= 0]
-    if missing:
-        raise AssertionError(f"kernels not launched on the main path: {missing}")
+    log(f"{tag}: mTRE init {m_init:.3f} mm -> final {m_final:.3f} mm (< 1 mm)")
+    if reg.projector.renderer != renderer:
+        raise AssertionError(f"registration ran {reg.projector.renderer}, not {renderer}")
+    stray = [k for k, v in launches.items() if v and k not in kernels]
+    if stray:
+        raise AssertionError(f"kernels of another path launched: {stray}")
     if not m_final < 1.0:
         raise AssertionError(f"final mTRE {m_final:.3f} mm >= 1 mm")
-    return launches, dict(wall_s=wall, mtre_init_mm=m_init, mtre_final_mm=m_final)
+    stages = [dict(stage=r["stage"], K=r["K"], det=r["height"], n_done=r["n_done"],
+                   ms_per_itr=r["ms_per_itr"]) for r in reg.stage_log]
+    return launches, dict(wall_s=wall, mtre_init_mm=m_init, mtre_final_mm=m_final,
+                          n_itrs=n_itrs, stages=stages)
+
+
+def label_and_siddon_renders(volume, gt_pose, gt_proj, gt_img, pose4, chans=(1, 2)):
+    """A labelmap render through ``Projector(labels=...)`` with the slab
+    kernels at the fine stage, forward and backward (K7, K6), and the
+    ``siddon_pallas`` render of the GT pose at full size (K8), each with
+    the launch counts of its own run. -> (launches per kernel, stats)."""
+    import numpy as np
+    import torch
+    from xvr_tpu_torch.geometry import convert
+    from xvr_tpu_torch.registrar.base import _parse_scales
+    from xvr_tpu_torch.render import Projector
+    from xvr_tpu_torch.render import pallas as sp
+    from xvr_tpu_torch.render import shearwarp as sw
+
+    det = gt_proj.detector
+    crop = 100  # the registration's: its fine stage renders 239^2 of the 1336^2 crop
+    base = Projector.from_volume(volume, sdd=det.sdd, height=det.height - crop, delx=det.delx,
+                                 labels=chans)
+    fine = base.rescale_detector(_parse_scales("24,12,6", crop, base.detector.height)[2])
+    fine = fine.with_pallas(pose4)
+    if fine.renderer != "trilinear_pallas":
+        raise AssertionError(f"label render did not take the slab kernels: {fine.renderer}")
+    rot, xyz = (x.detach().clone().requires_grad_(True) for x in pose4.convert("euler_angles", "ZXY"))
+
+    def label_render():
+        img = fine(convert(rot, xyz, "euler_angles", "ZXY"))
+        (img.sum(dim=1) ** 2).mean().backward()
+        return img.detach()
+
+    img, l7 = counted(("slab_channels", "slab_backward"), label_render)
+    with torch.no_grad():
+        src, tgt = fine.rays(convert(rot, xyz, "euler_angles", "ZXY"))
+        fields = sp._fields(*sw._decompose(fine.affine_inverse, src, tgt, fine.pallas_perm))
+        k5 = sp.slab_forward(fine.pack_for_pallas()[0], fields).reshape(img.shape[0], *img.shape[2:])
+    ch_sum = img.sum(dim=1)
+    diff = float((ch_sum - k5).abs().max())
+    per_ch = [float(img[:, c].sum() / img.sum()) for c in range(img.shape[1])]
+    log(f"slices: label render {tuple(img.shape)} via {fine.renderer}: channel shares "
+        f"{[round(p, 4) for p in per_ch]}, |sum of channels - K5| max {diff:.3e} "
+        f"(<= 2e-5 * {float(k5.abs().max()):.3f}), launches {json.dumps(l7)}")
+    if not (torch.isfinite(img).all() and torch.isfinite(rot.grad).all()
+            and float(rot.grad.abs().sum()) > 0 and diff <= 2e-5 * float(k5.abs().max())):
+        raise AssertionError("label render: non-finite output, zero gradient or channel sum off")
+
+    sid_proj = gt_proj.replace(renderer="siddon_pallas")
+    with torch.no_grad():
+        sid, l8 = counted(("slab_siddon",), lambda: sid_proj(gt_pose)[0, 0])
+    sid = sid.cpu().numpy()
+    corr = float(np.corrcoef(sid.ravel(), gt_img.ravel())[0, 1])
+    log(f"slices: siddon_pallas GT render {sid.shape}: max {sid.max():.3f}, corr with the "
+        f"shear-warp GT X-ray {corr:.6f} (> 0.95), launches {json.dumps(l8)}")
+    # the exact check of K8 is the 96^2 one against the golden Siddon; at full
+    # size the piecewise-constant image only has to be the same scene
+    if sid.shape != gt_img.shape or not np.isfinite(sid).all() or not corr > 0.95:
+        raise AssertionError("siddon_pallas GT render is off")
+    return ({"slab_channels": l7["slab_channels"], "slab_siddon": l8["slab_siddon"]},
+            dict(label_channel_shares=per_ch, label_sum_err=diff, siddon_corr=corr))
 
 
 def main() -> int:
@@ -420,7 +742,7 @@ def main() -> int:
         if "ptxas" in line and ("registers" in line or "Compiling" in line or "spill" in line):
             log(f"  {line.strip()}")
 
-    # 3. kernels at the path's shapes, on the bench scene
+    # 3. kernels at the paths' shapes, on the bench scene
     import numpy as np
     from xvr_tpu_torch.geometry import convert
     from xvr_tpu_torch.render import Projector, Volume
@@ -428,7 +750,10 @@ def main() -> int:
     t0 = time.perf_counter()
     hu, aff, fids = build_phantom(256)
     log(f"phantom: 256^3 built in {time.perf_counter() - t0:.1f} s")
-    vol = Volume(data=torch.as_tensor(hu, device="cuda"), affine=torch.as_tensor(aff, device="cuda"))
+    # labelmap: 1 = bone above 600 HU, 2 = the plate above 1300 HU
+    mask = np.where(hu > 1300.0, 2, np.where(hu > 600.0, 1, 0)).astype(np.int32)
+    vol = Volume(data=torch.as_tensor(hu, device="cuda"), affine=torch.as_tensor(aff, device="cuda"),
+                 mask=torch.as_tensor(mask, device="cuda"))
     proj = Projector.from_volume(vol, sdd=1020.0, height=1336, delx=0.194)
     rng = np.random.default_rng(3)
 
@@ -439,22 +764,49 @@ def main() -> int:
                        torch.tensor(xyz, dtype=torch.float32, device="cuda"), "euler_angles", "ZXY")
 
     pose16, pose4 = poses(16), poses(4)
-    proj = proj.with_shearwarp(pose16[:1])
-    log(f"kernels: volume perm {proj.pallas_perm}, renderer {proj.renderer}")
-    records = phase_kernels(proj, pose16, pose4)
+    sw_proj = proj.with_shearwarp(pose16[:1])
+    slab_proj = proj.with_pallas(pose16[:1])
+    log(f"kernels: volume perm {sw_proj.pallas_perm} ({sw_proj.renderer}), "
+        f"{slab_proj.pallas_perm} ({slab_proj.renderer})")
+    if slab_proj.renderer != "trilinear_pallas":
+        raise AssertionError(f"with_pallas declined the bench poses: {slab_proj.renderer}")
+    records, calls = phase_kernels(sw_proj, pose16, pose4)
+    slab_records, slab_calls = phase_slab_kernels(slab_proj, pose16, pose4, vol.mask)
+    records.update(slab_records)
+    calls.update(slab_calls)
+    prof = profiler_ms(calls)
+    for name, ms in prof.items():
+        records[name][-1]["profiler_ms"] = ms
+        log(f"  profiler {name} [{records[name][-1]['shape']}]: device "
+            f"{'not measured' if ms is None else f'{ms:.4f} ms'} per call, CUDA events "
+            f"{records[name][-1]['ms']:.4f} ms")
     log(f"kernels: all checks passed ({time.perf_counter() - t0:.1f} s)")
 
+    # 4. the slices, each with the launch counts of its own run
     with tempfile.TemporaryDirectory(prefix="xvr_chip_smoke_") as tmp:
-        launches, slice_stats = phase_slice(Path(tmp), hu, aff, fids)
+        workdir = Path(tmp)
+        gt_pose, gt_proj, gt_img = write_scene(workdir, hu, aff)
+        sw_launches, sw_stats = register(
+            workdir, gt_pose, fids, "trilinear_fast",
+            ("sw_accumulate", "sw_warp", "sw_warp_grads", "sw_accumulate_adjoint"))
+        slab_launches, slab_stats = register(
+            workdir, gt_pose, fids, "trilinear_pallas", ("slab_forward", "slab_backward"),
+            no_shearwarp=True)
+    render_launches, render_stats = label_and_siddon_renders(vol, gt_pose, gt_proj, gt_img, pose4)
+    launches = {**{k: sw_launches[k] for k in sw_launches if k.startswith("sw_")},
+                "slab_forward": slab_launches["slab_forward"],
+                "slab_backward": slab_launches["slab_backward"], **render_launches}
 
-    # one record per kernel: the fine stage's shape (B=4, 256^2 grid, eps 1)
+    # one record per kernel: the fine stage's shape
     kernels = []
     for name, recs in records.items():
         rec = dict(recs[-1])
         rec["launches"] = launches[name]
         rec["max_abs_err"] = max(r["max_abs_err"] for r in recs)
         kernels.append(rec)
-    log(f"total: {time.perf_counter() - t_start:.1f} s; slice {json.dumps(slice_stats)}")
+    log(f"total: {time.perf_counter() - t_start:.1f} s")
+    print("slices " + json.dumps({"shearwarp": sw_stats, "slab": slab_stats, "renders": render_stats}),
+          flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

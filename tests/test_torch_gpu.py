@@ -5,7 +5,10 @@ Elsewhere every test skips; the decision is made in a fixture, so every
 worker collects the same tests. References are the plain versions with
 ``bf16=False`` (the kernels' own arithmetic) in float64, except for K4, whose
 hat' jumps at integer positions: its reference computes positions in float32
-exactly as the kernel does. Tolerances are those of chip_smoke.py.
+exactly as the kernel does. The slab kernels follow the same rule: K5 and K8
+(positive terms) against float64, K6 (tent slopes that flip where a sample
+crosses a row) and K7 (nearest-label rounding) against float32 plain
+versions with identical positions. Tolerances are those of chip_smoke.py.
 """
 
 import numpy as np
@@ -95,7 +98,7 @@ def test_fast_render_launches_every_kernel(cuda):
     img = raymarch_trilinear_fast(density, affinv, src, tgt)
     (img**2).sum().backward()
     torch.cuda.synchronize()
-    assert all(v == 1 for v in _cuda.LAUNCHES.values()), _cuda.LAUNCHES
+    assert all(v == int(k.startswith("sw_")) for k, v in _cuda.LAUNCHES.items()), _cuda.LAUNCHES
     assert torch.isfinite(img).all() and torch.isfinite(rot.grad).all()
     assert float(rot.grad.abs().sum()) > 0
 
@@ -109,3 +112,110 @@ def test_wrappers_check_their_inputs(cuda):
     with pytest.raises(ValueError, match="slab bounds"):
         _cuda.accumulate(vol.bfloat16(), torch.zeros((2, 8), device=cuda), Iu=8, Iv=8, eps=1.0,
                          k0=0, k1=9)
+
+
+def _slab_inputs(dev, seed, B=3, R=300, M=24, Wd=20, L=28):
+    """A (M, Wd, L) bf16 volume and (7, B, R) fields of rays that cross it
+    within ~30 degrees of the march axis, some of them clipped by the box."""
+    rng = np.random.default_rng(seed)
+    f = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)  # noqa: E731
+    vol = f(rng.uniform(0.0, 1.0, (M, Wd, L))).to(torch.bfloat16)
+    s = np.stack([np.full((B, R), -30.0), rng.uniform(-4, Wd + 3, (B, R)),
+                  rng.uniform(-4, L + 3, (B, R))])
+    d = np.stack([np.full((B, R), M + 60.0), rng.uniform(-0.5, 0.5, (B, R)) * (M + 60),
+                  rng.uniform(-0.5, 0.5, (B, R)) * (M + 60)])
+    ws = rng.uniform(0.5, 2.0, (B, R))
+    ws[:, :5] = 0.0  # padding rays
+    return vol, f(np.concatenate([s, d, ws[None]])).contiguous()
+
+
+def test_slab_forward_and_siddon_match_plain(cuda):
+    from xvr_tpu_torch.render import pallas as sp
+
+    vol, fields = _slab_inputs(cuda, 5)
+    ref = sp._slab_forward(vol, fields.double())
+    torch.testing.assert_close(sp.slab_forward(vol, fields).double(), ref, rtol=2e-4,
+                               atol=2e-5 * float(ref.abs().max()))
+    ref = sp._slab_siddon(vol, fields.double())
+    torch.testing.assert_close(sp.slab_siddon(vol, fields).double(), ref, rtol=1e-3,
+                               atol=1e-4 * float(ref.abs().max()))
+
+
+def test_slab_backward_matches_plain(cuda):
+    from xvr_tpu_torch.render import pallas as sp
+
+    vol, fields = _slab_inputs(cuda, 6)
+    g = torch.randn(fields.shape[1:], generator=torch.Generator(cuda).manual_seed(7), device=cuda)
+    got = sp.slab_backward(vol, fields, g)
+    ref = sp._slab_backward(vol, fields, g)
+    for j in range(7):
+        torch.testing.assert_close(got[j], ref[j], rtol=1e-3,
+                                   atol=1e-4 * float(ref[j].abs().max()))
+
+
+def test_slab_channels_match_plain(cuda):
+    from xvr_tpu_torch.render import pallas as sp
+
+    vol, fields = _slab_inputs(cuda, 8)
+    labels = torch.as_tensor(np.random.default_rng(9).integers(0, 4, vol.shape), dtype=torch.uint8,
+                             device=cuda)
+    got = sp.slab_channels(vol, labels, (1, 3), fields)
+    ref = sp._slab_channels(vol, labels, (1, 3), fields)
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5 * float(ref.abs().max()))
+    k5 = sp.slab_forward(vol, fields)
+    torch.testing.assert_close(got.sum(1), k5, rtol=1e-5, atol=1e-5 * float(k5.abs().max()))
+
+
+def test_slab_render_launches_its_kernels(cuda):
+    """A slab render and its backward go through K5 and K6; a labelmap
+    render through K7; a Siddon render through K8; and only there."""
+    from xvr_tpu_torch.geometry import Detector, convert
+    from xvr_tpu_torch.render import _cuda
+    from xvr_tpu_torch.render.pallas import raymarch_siddon_pallas, raymarch_trilinear_pallas
+
+    n = 40
+    g = torch.Generator(cuda).manual_seed(4)
+    density = torch.rand((n, n, n), generator=g, device=cuda)
+    mask = (density > 0.5).to(torch.int32)
+    affinv = torch.eye(4, device=cuda) / 2.0
+    affinv[3, 3] = 1.0
+    affinv[:3, 3] = (n - 1) / 2.0
+    rot = torch.tensor([[180.0, 2.0, -3.0], [178.0, -1.0, 2.0]], device=cuda, requires_grad=True)
+    xyz = torch.tensor([[0.0, 500.0, 0.0], [3.0, 520.0, -2.0]], device=cuda)
+    det = Detector(sdd=1000.0, height=32, width=32, delx=3.0, dely=3.0)
+    _cuda.reset_launches()
+    src, tgt = det.rays(convert(rot, xyz, "euler_angles", "ZXY", degrees=True))
+    img = raymarch_trilinear_pallas(density, affinv, src, tgt)
+    ch = raymarch_trilinear_pallas(density, affinv, src, tgt, mask=mask, labels=(1,))
+    ((img**2).sum() + ch.sum()).backward()
+    with torch.no_grad():
+        sid = raymarch_siddon_pallas(density, affinv, src, tgt)
+    torch.cuda.synchronize()
+    want = dict.fromkeys(_cuda.LAUNCHES, 0)
+    want.update(slab_forward=1, slab_backward=2, slab_channels=1, slab_siddon=1)
+    assert _cuda.LAUNCHES == want
+    assert torch.isfinite(img).all() and torch.isfinite(sid).all()
+    assert float(rot.grad.abs().sum()) > 0
+
+
+def test_fast_render_slab_backward_launches_k6(cuda):
+    """backward="slab" pairs the shear-warp forward (K1, K2) with K6."""
+    from xvr_tpu_torch.geometry import Detector, convert
+    from xvr_tpu_torch.render import _cuda, raymarch_trilinear_fast
+
+    n = 40
+    density = torch.rand((n, n, n), generator=torch.Generator(cuda).manual_seed(5), device=cuda)
+    affinv = torch.eye(4, device=cuda) / 2.0
+    affinv[3, 3] = 1.0
+    affinv[:3, 3] = (n - 1) / 2.0
+    rot = torch.tensor([[180.0, 2.0, -3.0]], device=cuda, requires_grad=True)
+    xyz = torch.tensor([[0.0, 500.0, 0.0]], device=cuda)
+    det = Detector(sdd=1000.0, height=32, width=32, delx=3.0, dely=3.0)
+    _cuda.reset_launches()
+    src, tgt = det.rays(convert(rot, xyz, "euler_angles", "ZXY", degrees=True))
+    (raymarch_trilinear_fast(density, affinv, src, tgt, backward="slab") ** 2).sum().backward()
+    torch.cuda.synchronize()
+    want = dict.fromkeys(_cuda.LAUNCHES, 0)
+    want.update(sw_accumulate=1, sw_warp=1, slab_backward=1)
+    assert _cuda.LAUNCHES == want
+    assert float(rot.grad.abs().sum()) > 0

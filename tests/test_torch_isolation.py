@@ -36,6 +36,7 @@ def test_port_module_imports_no_jax(path):
 def test_import_leaves_jax_unloaded():
     code = (
         "import sys, xvr_tpu_torch, xvr_tpu_torch.registrar, xvr_tpu_torch.render, "
+        "xvr_tpu_torch.render.pallas, "
         "xvr_tpu_torch.io, xvr_tpu_torch.metrics, xvr_tpu_torch.utils, xvr_tpu_torch.state; "
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)"

@@ -8,6 +8,10 @@ port on its kernels' plain versions). Per-iteration poses agree closely at
 first (both sides run the same f32 math up to bf16 rounding in the render)
 and then drift apart slowly, so the trajectory is compared over its first
 rows and the end result by its double geodesic to the ground truth.
+
+With XVR_NO_SHEARWARP as well, both take the slab kernels instead
+(``trilinear_pallas``: the JAX package's Pallas kernels in interpret mode,
+the port's plain versions of K5/K6).
 """
 
 import json
@@ -83,14 +87,15 @@ def phantom(tmp_path_factory):
     return build_phantom(tmp_path_factory.mktemp("treg"))
 
 
-def _register(d, rot_init, xyz_init, extra):
+def _register(d, rot_init, xyz_init, extra, kw=KW, env=("XVR_FORCE_SHEARWARP",)):
     with pytest.MonkeyPatch.context() as mp:
-        mp.setenv("XVR_FORCE_SHEARWARP", "1")
+        for name in env:
+            mp.setenv(name, "1")
         jreg = JRegistrarFixed(volume=d / "ct.nii.gz", mask=None, orientation="AP",
-                               rot=rot_init, xyz=xyz_init, **KW, **extra)
+                               rot=rot_init, xyz=xyz_init, **kw, **extra)
         jout = jreg.run(d / "xray.dcm")
         treg = RegistrarFixed(volume=d / "ct.nii.gz", mask=None, orientation="AP",
-                              rot=rot_init, xyz=xyz_init, device="cpu", **KW, **extra)
+                              rot=rot_init, xyz=xyz_init, device="cpu", **kw, **extra)
         tout = treg.run(d / "xray.dcm")
     return jreg, jout, treg, tout
 
@@ -105,6 +110,14 @@ def single_run(phantom):
 def full_run(phantom):
     d, _, rot_init, xyz_init = phantom
     return _register(d, rot_init, xyz_init, FULL)
+
+
+@pytest.fixture(scope="module")
+def slab_run(phantom):
+    """One start through the slab kernels, 6 iterations a stage."""
+    d, _, rot_init, xyz_init = phantom
+    return _register(d, rot_init, xyz_init, SINGLE, kw=dict(KW, n_itrs="6,6"),
+                     env=("XVR_FORCE_SHEARWARP", "XVR_NO_SHEARWARP"))
 
 
 def test_both_take_the_fast_path(single_run):
@@ -125,6 +138,28 @@ def test_trajectory_first_rows_match(single_run):
     jn = jout[5]["trajectory"]["ncc"]
     tn = tout[5]["trajectory"]["ncc"]
     np.testing.assert_allclose(tn[:6], jn[:6], rtol=0, atol=1e-3)
+
+
+def test_both_take_the_slab_path(slab_run):
+    """Under XVR_NO_SHEARWARP both registrars fall back to the slab kernels
+    with the same volume permutation, and the port logs it per stage."""
+    jreg, _, treg, _ = slab_run
+    assert jreg.projector.renderer == treg.projector.renderer == "trilinear_pallas"
+    assert treg.projector.pallas_perm == jreg.projector.pallas_perm
+    assert [rec["renderer"] for rec in treg.stage_log] == ["trilinear_pallas"] * 2
+
+
+def test_slab_trajectory_matches(slab_run):
+    """Every row of the slab path's trajectory (two stages of 6 steps)
+    agrees within 1e-3 (rad, mm and NCC): K5/K6 and their plain versions
+    agree to float32 rounding (tests/test_torch_pallas.py), so the two
+    optimizers see the same similarities and gradients."""
+    _, jout, _, tout = slab_run
+    jp, tp = jout[5]["trajectory"]["params"], tout[5]["trajectory"]["params"]
+    assert jp.shape == tp.shape
+    np.testing.assert_allclose(tp, jp, rtol=0, atol=1e-3)
+    np.testing.assert_allclose(tout[5]["trajectory"]["ncc"], jout[5]["trajectory"]["ncc"],
+                               rtol=0, atol=1e-3)
 
 
 @pytest.mark.parametrize("which,tol_mm", [("single", 0.5), ("full", 2.0)])

@@ -202,16 +202,18 @@ class RegistrarBase:
         warmup = float(self.stage_warmup)
         b1, b2, eps = 0.9, 0.999, 1e-8
         use_fast = projector.renderer.endswith("_fast")
+        use_pallas = projector.renderer == "trilinear_pallas"
 
         imagesim = make_imagesim(mncc_patch_size, gncc_patch_size, sigma, beta)
 
-        def similarity(rot, xyz, gt, density, prepared):
+        def similarity(rot, xyz, gt, density, packed, prepared):
             pose = convert(rot, xyz, parameterization=parameterization, convention=convention)
-            img = projector(pose, density=density, prepared=prepared)
+            img = projector(pose, density=density, packed=packed, prepared=prepared)
             return imagesim(gt, transform(img))
 
         def stage(rot, xyz, gt, density, lr_rot, lr_xyz):
             # permute/cast the volume once per stage, outside the loop
+            packed = projector.pack_for_pallas(density) if use_pallas else None
             prepared = projector.prepare_for_shearwarp(density) if use_fast else None
             K = rot.shape[0]
             dev, fdt = rot.device, rot.dtype
@@ -239,7 +241,7 @@ class RegistrarBase:
                 live = n_plateaus < max_n_plateaus
                 r_ = rot.requires_grad_(True)
                 x_ = xyz.requires_grad_(True)
-                sims = similarity(r_, x_, gt, density, prepared)
+                sims = similarity(r_, x_, gt, density, packed, prepared)
                 g_r, g_x = torch.autograd.grad(sims.sum(), (r_, x_))
                 rot, xyz = r_.detach(), x_.detach()
                 loss = sims.detach()
@@ -302,7 +304,7 @@ class RegistrarBase:
             # the loop records PRE-step losses, so the final iterate was never
             # scored: score it and keep, per image, the better of (last, argmax)
             with torch.no_grad():
-                last_ncc = similarity(rot, xyz, gt, density, prepared)
+                last_ncc = similarity(rot, xyz, gt, density, packed, prepared)
             use_last = last_ncc >= best_raw
             rot_out = torch.where(use_last[:, None], rot, b_rot)
             xyz_out = torch.where(use_last[:, None], xyz, b_xyz)
@@ -390,15 +392,16 @@ class RegistrarBase:
         """Kernel selection: on a CUDA device (or with XVR_FORCE_SHEARWARP,
         which the CPU tests set) the bare ``trilinear``/``siddon`` renderers
         become ``{family}_fast`` when shear-warp accepts the coarse stage's
-        rays. ``XVR_NO_PALLAS`` disables every upgrade and
-        ``XVR_NO_SHEARWARP`` this one. Where the JAX package then falls back
-        to the slab kernel (K5, not ported yet) the golden renderer stays."""
+        rays; a ``trilinear`` renderer that is left (shear-warp declined, or
+        ``XVR_NO_SHEARWARP``) becomes ``trilinear_pallas`` when the slab
+        kernels accept them. ``XVR_NO_PALLAS`` disables every upgrade."""
         if (
-            self.renderer in ("trilinear", "siddon")
-            and (self.device.type == "cuda" or os.environ.get("XVR_FORCE_SHEARWARP"))
-            and not os.environ.get("XVR_NO_PALLAS")
-            and not os.environ.get("XVR_NO_SHEARWARP")
+            self.renderer not in ("trilinear", "siddon")
+            or not (self.device.type == "cuda" or os.environ.get("XVR_FORCE_SHEARWARP"))
+            or os.environ.get("XVR_NO_PALLAS")
         ):
+            return
+        if not os.environ.get("XVR_NO_SHEARWARP"):
             coarse = self.projector.rescale_detector(scales[0]).with_shearwarp(init_pose)
             if coarse.renderer.endswith("_fast"):
                 self.projector = self.projector.replace(
@@ -407,6 +410,14 @@ class RegistrarBase:
                     pallas_window=coarse.pallas_window,
                     pallas_remap=False,
                     shearwarp_remap=coarse.shearwarp_remap,
+                )
+        if self.projector.renderer == "trilinear":
+            coarse = self.projector.rescale_detector(scales[0]).with_pallas(init_pose)
+            if coarse.renderer == "trilinear_pallas":
+                self.projector = self.projector.replace(
+                    renderer="trilinear_pallas",
+                    pallas_perm=coarse.pallas_perm,
+                    pallas_window=coarse.pallas_window,
                 )
 
     def run_batch(self, i2ds, mncc_patch_size=9, gncc_patch_size=11, sigma=0.0, beta=0.5):

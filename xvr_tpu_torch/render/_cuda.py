@@ -1,10 +1,13 @@
-"""Build, load and launch the hand-written CUDA shear-warp kernels.
+"""Build, load and launch the hand-written CUDA kernels (shear-warp K1-K4,
+slab march K5-K8).
 
-The sources live in ``xvr_tpu_torch/csrc/``. On first use they are compiled
-by one ``nvcc`` call into a shared library with a plain C interface
-(``build/`` at the repository root, keyed by a hash of the sources) and
-loaded with ``ctypes``. Nothing here runs at import time, so the module
-imports on a machine without a GPU or ``nvcc``.
+The sources live in ``xvr_tpu_torch/csrc/``. On first use each source is
+compiled by its own ``nvcc`` process, all started together, and the objects
+are linked into one shared library with a plain C interface (``build/`` at
+the repository root, keyed by a hash of the sources and flags) that is loaded
+with ``ctypes``. ``slab.cu`` is compiled with ``-fmad=false`` (see the note
+at its top). Nothing here runs at import time, so the module imports on a
+machine without a GPU or ``nvcc``.
 
 Each launch function checks device, dtype, shape and contiguity, allocates
 its outputs with ``torch.empty``, launches on the current CUDA stream,
@@ -25,13 +28,18 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = (CSRC / "shearwarp.cu",)
+SOURCES = (CSRC / "shearwarp.cu", CSRC / "slab.cu")
+# per-source nvcc flags beyond the common ones
+SOURCE_FLAGS = {"slab.cu": ("-fmad=false",)}
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 # launches per kernel since the last reset_launches(); read by chip_smoke.py
 # to show that a run went through the kernels
-LAUNCHES = {"sw_accumulate": 0, "sw_warp": 0, "sw_warp_grads": 0, "sw_accumulate_adjoint": 0}
+LAUNCHES = {
+    "sw_accumulate": 0, "sw_warp": 0, "sw_warp_grads": 0, "sw_accumulate_adjoint": 0,
+    "slab_forward": 0, "slab_backward": 0, "slab_channels": 0, "slab_siddon": 0,
+}
 
 _lib = None
 BUILD_INFO: dict = {}
@@ -54,26 +62,46 @@ def _nvcc() -> str:
 
 def build(verbose: bool = False) -> Path:
     """Compile the kernel sources into ``build/`` unless an up-to-date
-    library is there already; returns its path. ``verbose`` adds
-    ``-Xptxas -v`` and keeps the compiler's report in ``BUILD_INFO``."""
-    digest = hashlib.sha256(b"".join(p.read_bytes() for p in SOURCES)).hexdigest()[:12]
-    out = BUILD_DIR / f"libxvr_shearwarp_{digest}.so"
+    library is there already; returns its path. One ``nvcc -c`` per source
+    runs in parallel, then one link. ``verbose`` adds ``-Xptxas -v`` and keeps
+    the compilers' report in ``BUILD_INFO``."""
+    common = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
+    key = repr((common, SOURCE_FLAGS)).encode() + b"".join(p.read_bytes() for p in SOURCES)
+    digest = hashlib.sha256(key).hexdigest()[:12]
+    out = BUILD_DIR / f"libxvr_kernels_{digest}.so"
     if out.exists() and not verbose:
         BUILD_INFO.update(path=str(out), seconds=0.0, log="(cached)")
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
-    if verbose:
-        cmd += ["-Xptxas", "-v"]
-    cmd += ["-o", str(tmp), *map(str, SOURCES)]
+    nvcc = _nvcc()
+    tag = f"{digest}.{os.getpid()}"
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    secs = time.perf_counter() - t0
+    procs = []
+    for src in SOURCES:
+        obj = BUILD_DIR / f"{src.stem}.{tag}.o"
+        cmd = [nvcc, *common, *SOURCE_FLAGS.get(src.name, ()), "-c", "-o", str(obj), str(src)]
+        if verbose:
+            cmd[1:1] = ["-Xptxas", "-v"]
+        procs.append((src, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                 stderr=subprocess.STDOUT, text=True)))
+    logs, failed = [], []
+    for src, _, proc in procs:
+        text = proc.communicate()[0]
+        logs.append(f"== {src.name}\n{text}")
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on {src.name} ({proc.returncode}):\n{text}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    link = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *(str(obj) for _, obj, _ in procs)]
+    res = subprocess.run(link, capture_output=True, text=True)
+    for _, obj, _ in procs:
+        obj.unlink(missing_ok=True)
     if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
+        raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
     os.replace(tmp, out)
-    BUILD_INFO.update(path=str(out), seconds=secs, log=res.stdout + res.stderr)
+    BUILD_INFO.update(path=str(out), seconds=time.perf_counter() - t0,
+                      log="".join(logs) + res.stdout + res.stderr)
     return out
 
 
@@ -88,8 +116,14 @@ def _load():
     lib.sw_warp_grads.argtypes = [P, P, P, P, P, P, P, I, I, I, I, P]
     lib.sw_adjoint_partials_shape.argtypes = [I, I, ctypes.POINTER(I), ctypes.POINTER(I)]
     lib.sw_accumulate_adjoint.argtypes = [P, I, I, P, P, P, P, P, P, I, I, I, F, I, I, P]
+    lib.slab_forward.argtypes = [P, I, I, I, P, P, I, I, P]
+    lib.slab_backward.argtypes = [P, I, I, I, P, P, P, I, I, P]
+    lib.slab_max_channels.argtypes = []
+    lib.slab_channels.argtypes = [P, P, I, I, I, P, I, P, P, I, I, P]
+    lib.slab_siddon.argtypes = [P, I, I, I, P, P, I, I, P]
     for fn in ("sw_accumulate", "sw_warp", "sw_warp_grads", "sw_adjoint_partials_shape",
-               "sw_accumulate_adjoint"):
+               "sw_accumulate_adjoint", "slab_forward", "slab_backward", "slab_max_channels",
+               "slab_channels", "slab_siddon"):
         getattr(lib, fn).restype = I
     _lib = lib
     return lib
@@ -195,3 +229,69 @@ def accumulate_adjoint(vol, params, ibar, *, eps: float, k0: int, k1: int):
     _raise_on(err, "sw_accumulate_adjoint")
     LAUNCHES["sw_accumulate_adjoint"] += 1
     return gw, gl
+
+
+def _slab_inputs(vol, fields):
+    dev = vol.device
+    M, Wd, L = vol.shape
+    _, B, R = fields.shape
+    _check(vol, "vol", torch.bfloat16, (M, Wd, L), dev)
+    _check(fields, "fields", torch.float32, (7, B, R), dev)
+    return dev, M, Wd, L, B, R
+
+
+def slab_forward(vol, fields) -> torch.Tensor:
+    """K5. ``vol`` (M, Wd, L) bf16, ``fields`` (7, B, R) f32
+    ``[s0, s1, s2, d0, d1, d2, ws]`` -> (B, R) f32."""
+    lib = _load()
+    dev, M, Wd, L, B, R = _slab_inputs(vol, fields)
+    out = torch.empty((B, R), dtype=torch.float32, device=dev)
+    err = lib.slab_forward(vol.data_ptr(), M, Wd, L, fields.data_ptr(), out.data_ptr(), B, R,
+                           _stream(dev))
+    _raise_on(err, "slab_forward")
+    LAUNCHES["slab_forward"] += 1
+    return out
+
+
+def slab_backward(vol, fields, g) -> torch.Tensor:
+    """K6. Cotangent ``g`` (B, R) f32 -> the gradient of <g, K5> with respect
+    to the fields, (7, B, R) f32."""
+    lib = _load()
+    dev, M, Wd, L, B, R = _slab_inputs(vol, fields)
+    _check(g, "g", torch.float32, (B, R), dev)
+    out = torch.empty((7, B, R), dtype=torch.float32, device=dev)
+    err = lib.slab_backward(vol.data_ptr(), M, Wd, L, fields.data_ptr(), g.data_ptr(),
+                            out.data_ptr(), B, R, _stream(dev))
+    _raise_on(err, "slab_backward")
+    LAUNCHES["slab_backward"] += 1
+    return out
+
+
+def slab_channels(vol, labels, chans, fields) -> torch.Tensor:
+    """K7. ``labels`` (M, Wd, L) uint8 (the permuted labelmap), ``chans``
+    (C - 1,) int32 label values -> (B, C, R) f32."""
+    lib = _load()
+    dev, M, Wd, L, B, R = _slab_inputs(vol, fields)
+    _check(labels, "labels", torch.uint8, (M, Wd, L), dev)
+    n = chans.shape[0]
+    _check(chans, "chans", torch.int32, (n,), dev)
+    if n + 1 > lib.slab_max_channels():
+        raise ValueError(f"{n + 1} channels; the kernel takes at most {lib.slab_max_channels()}")
+    out = torch.empty((B, n + 1, R), dtype=torch.float32, device=dev)
+    err = lib.slab_channels(vol.data_ptr(), labels.data_ptr(), M, Wd, L, chans.data_ptr(), n,
+                            fields.data_ptr(), out.data_ptr(), B, R, _stream(dev))
+    _raise_on(err, "slab_channels")
+    LAUNCHES["slab_channels"] += 1
+    return out
+
+
+def slab_siddon(vol, fields) -> torch.Tensor:
+    """K8. Exact Siddon forward -> (B, R) f32."""
+    lib = _load()
+    dev, M, Wd, L, B, R = _slab_inputs(vol, fields)
+    out = torch.empty((B, R), dtype=torch.float32, device=dev)
+    err = lib.slab_siddon(vol.data_ptr(), M, Wd, L, fields.data_ptr(), out.data_ptr(), B, R,
+                          _stream(dev))
+    _raise_on(err, "slab_siddon")
+    LAUNCHES["slab_siddon"] += 1
+    return out

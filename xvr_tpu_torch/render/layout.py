@@ -1,10 +1,11 @@
-"""Host-side volume-layout helpers for the shear-warp renderer.
+"""Host-side volume-layout helpers of the shear-warp and slab renderers.
 
 NumPy copies of the three helpers of ``xvr_tpu.render.pallas`` that the
-registration path calls: the march/window/lane permutation of the volume
-axes and the ray-steepness measurement that decides whether shear-warp may
-render a pose at all. The port has no slab kernels yet, so it has no
-``pallas`` module.
+renderer selection calls: the march/window/lane permutation of the volume
+axes and the ray-steepness measurement that decides whether a kernel may
+render a pose at all. They live here, apart from
+:mod:`~xvr_tpu_torch.render.pallas` (which re-exports them), because the
+shear-warp module needs them and the slab module needs the shear-warp one.
 """
 
 from __future__ import annotations

@@ -3,13 +3,14 @@
 Counterpart of ``xvr_tpu.render.projector``: a frozen dataclass holding the
 volume, its precomputed attenuation grid (on the volume's device), the
 detector and the renderer choice. Functional updates (``replace``,
-``set_intrinsics``, ``rescale_detector``, ``with_shearwarp``) return new
-projectors that share the tensors.
+``set_intrinsics``, ``rescale_detector``, ``with_shearwarp``,
+``with_pallas``) return new projectors that share the tensors.
 
-Renderers ported so far: ``trilinear`` (the golden renderer),
-``trilinear_fast``/``siddon_fast`` (shear-warp forward + analytic adjoint)
-and ``trilinear_shearwarp``/``siddon_shearwarp`` (forward only). Any other
-renderer raises ``NotImplementedError`` naming its ROADMAP item.
+Renderers: ``trilinear`` and ``siddon`` (the golden renderers),
+``trilinear_fast``/``siddon_fast`` (shear-warp forward + analytic adjoint),
+``trilinear_shearwarp``/``siddon_shearwarp`` (forward only),
+``trilinear_pallas`` (the slab kernels K5/K6, and K7 with a labelmap) and
+``siddon_pallas`` (the exact Siddon slab kernel K8, forward only).
 """
 
 from __future__ import annotations
@@ -26,11 +27,6 @@ from .layout import choose_permutation_for_pose, measured_steepness
 from .volume import Volume, transform_hu_to_density
 
 _SHEARWARP = ("trilinear_shearwarp", "trilinear_fast", "siddon_shearwarp", "siddon_fast")
-_NOT_PORTED = {
-    "siddon": "Queue 1 item 2, raymarch_siddon",
-    "trilinear_pallas": "Queue 2, K5 _kernel",
-    "siddon_pallas": "Queue 2, K8 _kernel_siddon",
-}
 
 
 def _batched(pose: RigidTransform) -> RigidTransform:
@@ -59,8 +55,10 @@ class Projector:
     labels: tuple[int, ...] | None = None
     n_samples: int = 256
     voxel_shift: float = 0.0
-    # volume-axis permutation (march, window, lane) of the shear-warp path
+    # volume-axis permutation (march, window, lane) of the kernels
     pallas_perm: tuple[int, int, int] | None = None
+    # TPU slab-kernel gather window and ray remap, accepted for parity and
+    # unused on the GPU
     pallas_window: int = 32
     pallas_remap: bool = False
     # TPU gather-window fields, accepted for parity and unused on the GPU
@@ -124,6 +122,55 @@ class Projector:
     def rescale_detector(self, scale: float) -> "Projector":
         return self.replace(detector=self.detector.rescale(scale))
 
+    def _mean_pose_R(self, reference_pose) -> np.ndarray:
+        """Mean rotation of the oriented reference poses (the orientation's
+        own rotation without one), on the host."""
+        if reference_pose is not None:
+            oriented = self._oriented(_batched(reference_pose))
+            return oriented.R.detach().cpu().double().numpy().reshape(-1, 3, 3).mean(axis=0)
+        return orientation_transform(self.volume.orientation, device="cpu").R.numpy()
+
+    def with_pallas(self, reference_pose=None, window: int | None = None,
+                    probe_poses=None) -> "Projector":
+        """Switch the trilinear renderer to the slab kernels
+        (``trilinear_pallas``), fixing the volume-axis permutation from a
+        representative pose. Returns ``self`` unchanged when probe rays
+        (``probe_poses``, else the reference pose) exceed 45 degrees of the
+        march axis (steepness > 1.2), where one sample per march plane
+        undersamples, as the JAX package does. ``window`` is kept when
+        given; the GPU kernels have no gather window to measure."""
+        perm = choose_permutation_for_pose(self._mean_pose_R(reference_pose),
+                                           self.affine_inverse_host())
+        proj = self.replace(
+            renderer="trilinear_pallas",
+            pallas_perm=perm,
+            pallas_window=int(window) if window is not None else self.pallas_window,
+        )
+        probes = probe_poses if probe_poses is not None else reference_pose
+        if probes is not None:
+            src, tgt = proj.rays_host(probes)
+            if measured_steepness(src, tgt, proj.affine_inverse_host(), perm) > 1.2:
+                print(
+                    "with_pallas: rays exceed 45deg of the march axis; "
+                    "keeping the golden renderer",
+                    flush=True,
+                )
+                return self
+        return proj
+
+    def tuned_for(self, poses, quantum: int = 8) -> "Projector":
+        """The JAX package re-measures its slab gather window and ray layout
+        here; the GPU kernels read any volume row, so the projector is
+        returned as it is."""
+        return self
+
+    def measure_window(self, poses, quantum: int = 8) -> int:
+        """The slab gather window for ``poses``: on the GPU no window clips,
+        so this is the projector's own ``pallas_window``."""
+        if self.pallas_perm is None:
+            raise ValueError("measure_window requires pallas_perm (use with_pallas)")
+        return int(self.pallas_window)
+
     def with_shearwarp(
         self,
         reference_pose=None,
@@ -148,12 +195,8 @@ class Projector:
                 "label-channel shear-warp is not ported to xvr_tpu_torch yet "
                 "(ROADMAP: Queue 1 item 3, channel folding)"
             )
-        if reference_pose is not None:
-            oriented = self._oriented(_batched(reference_pose))
-            R = oriented.R.detach().cpu().double().numpy().reshape(-1, 3, 3).mean(axis=0)
-        else:
-            R = orientation_transform(self.volume.orientation, device="cpu").R.numpy()
-        perm = choose_permutation_for_pose(R, self.affine_inverse_host())
+        perm = choose_permutation_for_pose(self._mean_pose_R(reference_pose),
+                                           self.affine_inverse_host())
         proj = self.replace(
             renderer=f"{flavor}_fast" if differentiable else f"{flavor}_shearwarp",
             pallas_perm=perm,
@@ -208,6 +251,16 @@ class Projector:
         return self.detector.inverse_projection(self._oriented(pose), pts)
 
     # -- rendering -----------------------------------------------------------
+    def pack_for_pallas(self, density: torch.Tensor | None = None):
+        """Permute and cast the density for the slab kernels (hoist out of
+        optimization loops; pass as ``packed``)."""
+        from .pallas import pack_density
+
+        density = self.density if density is None else density
+        if self.pallas_perm is None:
+            raise ValueError("pack_for_pallas requires pallas_perm (use with_pallas)")
+        return pack_density(density, self.pallas_perm)
+
     def prepare_for_shearwarp(self, density: torch.Tensor | None = None) -> torch.Tensor:
         """Permute and cast the density for the shear-warp renderer (hoist
         out of optimization loops; pass as ``prepared``)."""
@@ -238,15 +291,27 @@ class Projector:
             if self.renderer.endswith("_fast"):
                 return raymarch_trilinear_fast(density, self.affine_inverse, source, target, **kwargs)
             return raymarch_trilinear_shearwarp(density, self.affine_inverse, source, target, **kwargs)
+        if self.renderer in ("trilinear_pallas", "siddon_pallas"):
+            from .pallas import raymarch_siddon_pallas, raymarch_trilinear_pallas
+
+            kwargs = dict(
+                mask=mask, labels=labels,
+                det_shape=(self.detector.height, self.detector.width),
+                window=self.pallas_window, perm=self.pallas_perm, packed=packed,
+                remap=self.pallas_remap,
+            )
+            if self.renderer == "siddon_pallas":
+                return raymarch_siddon_pallas(density, self.affine_inverse, source, target, **kwargs)
+            return raymarch_trilinear_pallas(density, self.affine_inverse, source, target,
+                                             n_samples=self.n_samples, **kwargs)
         if self.renderer == "trilinear":
             return xla.raymarch_trilinear(
                 density, self.affine_inverse, source, target,
                 n_samples=self.n_samples, mask=mask, labels=labels,
             )
-        if self.renderer in _NOT_PORTED:
-            raise NotImplementedError(
-                f"renderer {self.renderer!r} is not ported to xvr_tpu_torch yet "
-                f"(ROADMAP: {_NOT_PORTED[self.renderer]})"
+        if self.renderer == "siddon":
+            return xla.raymarch_siddon(
+                density, self.affine_inverse, source, target, mask=mask, labels=labels,
             )
         raise ValueError(f"Unknown renderer {self.renderer!r}")
 
@@ -261,6 +326,7 @@ class Projector:
         if squeeze:
             pose = RigidTransform(pose.matrix[None])
         source, target = self.rays(pose, calibration)
-        img = self.render_rays(source, target, density=density, mask=mask, prepared=prepared)
+        img = self.render_rays(source, target, density=density, mask=mask, packed=packed,
+                               prepared=prepared)
         img = self.reshape_transform(img, batch_size=pose.matrix.shape[0])
         return img[0] if squeeze else img

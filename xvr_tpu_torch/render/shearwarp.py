@@ -35,10 +35,12 @@ the JAX package to f32 round-off; with ``bf16=False`` they compute the
 kernels' own arithmetic (f32, or float64 for a reference, from the bf16
 volume), which is what the kernels are checked against on the card.
 
-**Not ported yet** (each raises ``NotImplementedError``): ``backward="slab"``
-(needs the slab kernel K6), label-channel stacks, and ``grid_bounds``
-ray sharding. ``warp_window`` and ``warp_remap`` size TPU gather tiles; the
-GPU warp reads any grid cell, so they are accepted and ignored.
+``backward="slab"`` pairs the shear-warp forward with the slab kernel's VJP
+(K6, :mod:`~xvr_tpu_torch.render.pallas`), as the JAX package's cross-check
+does. **Not ported yet** (each raises ``NotImplementedError``): label-channel
+stacks and ``grid_bounds`` ray sharding. ``warp_window`` and ``warp_remap``
+size TPU gather tiles; the GPU warp reads any grid cell, so they are
+accepted and ignored.
 """
 
 from __future__ import annotations
@@ -359,7 +361,7 @@ class _FastRender(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, prepared, affine_inverse, source, target, cfg):
-        grid_shape, perm, eps = cfg
+        grid_shape, perm, eps, _ = cfg
         s_p, d_p, wscale = _decompose(affine_inverse, source, target, perm)
         out, I = _render_fields(prepared, s_p, d_p, wscale, grid_shape, eps)
         ctx.save_for_backward(prepared, affine_inverse, source, target, I)
@@ -369,12 +371,22 @@ class _FastRender(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         prepared, affine_inverse, source, target, I = ctx.saved_tensors
-        grid_shape, perm, eps = ctx.cfg
+        grid_shape, perm, eps, backward = ctx.cfg
         Iu, Iv = grid_shape
         with torch.enable_grad():
             src = source.detach().requires_grad_(True)
             tgt = target.detach().requires_grad_(True)
             s_p, d_p, wscale = _decompose(affine_inverse, src, tgt, perm)
+        if backward == "slab":
+            # the slab kernel's VJP (K6) on the same bf16 table: the
+            # gradient of the slab-marched integral, a cross-check
+            from .pallas import _fields, slab_backward
+
+            with torch.enable_grad():
+                fields = _fields(s_p, d_p, wscale)
+            g_fields = slab_backward(prepared, fields.detach(), g.contiguous())
+            g_src, g_tgt = torch.autograd.grad(fields, (src, tgt), g_fields)
+            return None, None, g_src, g_tgt, None
         dp, ws = d_p.detach(), wscale.detach()
         safe_d0, u0, du, v0, dv, uc, vc = _slope_pieces(dp, Iu, Iv)
         sgn = _march_sign(dp)
@@ -455,16 +467,17 @@ def raymarch_trilinear_fast(
 ) -> torch.Tensor:
     """Differentiable fast trilinear render: the shear-warp forward (K1, K2)
     with the analytic shear-warp adjoint (K3, warp transpose, K4) as its
-    backward. Gradients flow to ``source`` and ``target``."""
-    if backward == "slab":
-        raise _not_ported("backward='slab' (slab-kernel VJP)", "Queue 2, K6 _kernel_bwd")
-    if backward != "shearwarp":
+    backward, or with ``backward="slab"`` the slab kernel's VJP (K6), a
+    cross-check. Gradients flow to ``source`` and ``target``. ``packed`` and
+    ``slab_window`` are accepted for signature parity: both backwards read
+    ``prepared``."""
+    if backward not in ("shearwarp", "slab"):
         raise ValueError(f"unknown backward {backward!r}")
     perm, prepared, grid_shape = _resolve(
         density, affine_inverse, source, target, det_shape, perm, prepared, grid_shape,
         mask, labels, chan_bounds, grid_bounds,
     )
-    cfg = (grid_shape, perm, float(eps))
+    cfg = (grid_shape, perm, float(eps), backward)
     return _FastRender.apply(prepared, affine_inverse, source, target, cfg)
 
 

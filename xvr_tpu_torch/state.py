@@ -28,10 +28,12 @@ def from_numpy_state(
     orientation: str | None = "AP",
     density=None,
     renderer: str = "trilinear",
+    labels=None,
     n_samples: int = 256,
     voxel_shift: float = 0.0,
     pallas_perm=None,
     pallas_window: int = 32,
+    pallas_remap: bool = False,
     shearwarp_window: int = 48,
     shearwarp_grid=None,
     shearwarp_remap: bool = False,
@@ -41,7 +43,8 @@ def from_numpy_state(
     """-> (projector, volume, pose or None), all on ``device``.
 
     ``data`` (nx, ny, nz) intensities, ``affine`` (4, 4) voxel -> world mm,
-    ``mask`` an optional integer labelmap, ``density`` the attenuation grid
+    ``mask`` an optional integer labelmap (rendered as channels when
+    ``labels`` names some of its values), ``density`` the attenuation grid
     (computed from ``data`` by the HU transfer when omitted), ``detector`` a
     dict of :class:`~xvr_tpu_torch.geometry.Detector` fields and ``pose``
     optional (B, 4, 4) or (4, 4) matrices."""
@@ -62,10 +65,12 @@ def from_numpy_state(
         density=dens,
         detector=det,
         renderer=str(renderer),
+        labels=None if labels is None else tuple(int(x) for x in labels),
         n_samples=int(n_samples),
         voxel_shift=float(voxel_shift),
         pallas_perm=None if pallas_perm is None else tuple(int(p) for p in pallas_perm),
         pallas_window=int(pallas_window),
+        pallas_remap=bool(pallas_remap),
         shearwarp_window=int(shearwarp_window),
         shearwarp_grid=None if shearwarp_grid is None else tuple(int(x) for x in shearwarp_grid),
         shearwarp_remap=bool(shearwarp_remap),
