@@ -19,8 +19,11 @@ Phases (each prints one or more lines; any failure exits non-zero):
 2. build     nvcc seconds and the -Xptxas -v report of all eight kernels
 3. kernels   K1-K8 against their plain versions: max error and tolerance,
              kernel / plain / library times (CUDA events) and the bound;
-             K6 also against a finite difference of K5; then each kernel's
-             device time from torch.profiler
+             K1 and K4 also on steep and edge geometry beyond the path's
+             inputs, and eleven calls of each bit-identical; K6 also against a
+             finite difference of K5; then each kernel's device time from
+             torch.profiler at both shapes, and that of grid_sample, K2/K3's
+             library yardstick
 4. slices    GT render; the shear-warp and slab registrations, each with the
              launch counts of its own run and its mTRE; the label and Siddon
              renders, each with its launch counts
@@ -59,10 +62,10 @@ REPLACES = {
 }
 # device kernels each wrapper launches, for the profiler's per-kernel times
 DEVICE_KERNELS = {
-    "sw_accumulate": ("sw_accumulate_kernel",),
+    "sw_accumulate": ("sw_accumulate_tiled_kernel",),
     "sw_warp": ("sw_warp_kernel",),
     "sw_warp_grads": ("sw_warp_grads_kernel",),
-    "sw_accumulate_adjoint": ("sw_adjoint_kernel", "sw_sum_partials_kernel"),
+    "sw_accumulate_adjoint": ("sw_adjoint_tiled_kernel", "sw_sum_partials_kernel"),
     "slab_forward": ("slab_forward_kernel",),
     "slab_backward": ("slab_backward_kernel",),
     "slab_channels": ("slab_channels_kernel",),
@@ -106,7 +109,9 @@ def profiler_ms(calls: dict, reps: int = 10) -> dict:
     """Device time per call of each wrapper in ``calls`` (name -> fn) from
     torch.profiler: the CUDA activity's time of the wrapper's kernels, summed
     by kernel name, over ``reps`` calls. -> name -> ms, or None for every
-    name when the profiler records no device time on this machine."""
+    name when the profiler records no device time on this machine. Fails
+    when some names record device time and others none (a kernel renamed
+    without DEVICE_KERNELS would otherwise report 0 ms)."""
     import re
 
     import torch
@@ -134,7 +139,34 @@ def profiler_ms(calls: dict, reps: int = 10) -> dict:
     if not any(totals.values()):
         log("  profiler: no device time recorded; keeping the CUDA-event times only")
         return dict.fromkeys(calls)
+    silent = [name for name, t in totals.items() if not t]
+    if silent:
+        raise AssertionError(f"profiler: no device time for {silent} while other kernels have "
+                             f"some; DEVICE_KERNELS names {[DEVICE_KERNELS[n] for n in silent]}")
     return {name: totals[name] / 1e3 / reps for name in calls}
+
+
+def library_device_ms(fn, reps: int = 10):
+    """Device time per call of one PyTorch call, profiled alone: the sum over
+    every device activity it launches (whatever library kernel it picks:
+    F.grid_sample with align_corners=True goes to cuDNN). -> (ms or None,
+    kernel names)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total, names = 0.0, []
+    for ev in prof.key_averages():
+        if getattr(ev, "device_type", None) == DeviceType.CUDA:
+            total += float(ev.self_device_time_total)
+            names.append(ev.key)
+    return (total / 1e3 / reps if total else None), names
 
 
 # ---------------------------------------------------------------------------
@@ -245,6 +277,83 @@ def check(name, got, ref, label, atol, rtol=0.0):
     return err
 
 
+REPEATS = 10  # calls of K1 and K4 held bit for bit against their first
+
+
+def same_bits(name, first, call, label):
+    """REPEATS more calls of a kernel on the same inputs give the bits of its
+    first call (a race in the staging or the reduction would show here)."""
+    import torch
+
+    ok = all(torch.equal(first, call()) for _ in range(REPEATS))
+    log(f"  {name} {label}: {REPEATS} more calls bit-identical {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name} {label}: calls differ")
+
+
+# K1/K4 geometry beyond the path's inputs: (volume shape or None for the bench
+# volume, source s_p mean, (u0, du), (v0, dv), slope grid, exact). Each image
+# moves it by a random jitter, or if exact by binary fractions that keep every
+# float32 position exact (so the float64 reference of K1 sees the kernel's
+# positions where one ulp of a lane position is large, as at 2500 lanes)
+EDGE_CASES = {
+    # a tile's rows span up to ~130 volume rows per slab and its lanes ~260:
+    # many staged chunks per slab, tiles across the volume's edges, ragged grid
+    "steep, bench volume": (None, (-40.0, 128.0, 128.0), (-3.0, 0.03), (-1.0, 0.02), (200, 100),
+                            False),
+    # whole tiles at floor(wpos) = -1 and floor(lpos) = L - 1 of an odd-L
+    # volume (plain loads instead of cp.async)
+    "edge, odd L": ((64, 40, 77), (-20.0, -0.5, 76.5), (0.0, 0.001), (0.0, 0.001), (40, 100),
+                    False),
+    # 2500 lanes: boxes past a chunk's 2048 bf16, read by the lane pass from
+    # global memory
+    "wide volume": ((6, 20, 2500), (-12.0, 10.0, 1250.0), (-0.25, 1 / 64), (-85.0, 2.5), (24, 70),
+                    True),
+}
+
+
+def phase_edge_kernels(bench_vol, seed=6):
+    """K1 and K4 on EDGE_CASES against their plain versions with the path's
+    tolerances (see phase_kernels), eleven calls bit-identical each. -> max abs
+    error per kernel."""
+    import numpy as np
+    import torch
+    from xvr_tpu_torch.render import _cuda
+    from xvr_tpu_torch.render import shearwarp as sw
+
+    rng = np.random.default_rng(seed)
+    f = lambda a: torch.as_tensor(np.asarray(a, np.float32), device="cuda")  # noqa: E731
+    errs = {"sw_accumulate": 0.0, "sw_accumulate_adjoint": 0.0}
+    B = 3
+    for label, (shape, s, (u0, du), (v0, dv), (Iu, Iv), exact) in EDGE_CASES.items():
+        vol = bench_vol if shape is None else f(rng.uniform(0.0, 1.0, shape)).to(torch.bfloat16)
+        if exact:
+            ds = np.arange(B)[:, None] * np.array([0.25, 0.125, 0.125])
+            jit = lambda x: f(x * np.array([1.0, 1.25, 0.75]))  # noqa: E731
+        else:
+            ds = rng.normal(0.0, 0.2, (B, 3))
+            jit = lambda x: f(x * (1.0 + rng.uniform(-0.05, 0.05, B)))  # noqa: E731
+        args = (f(np.array(s) + ds), f(np.ones(B)), jit(u0), jit(du), jit(v0), jit(dv))
+        ibar = torch.randn((B, Iu, Iv), generator=torch.Generator(device="cuda").manual_seed(seed),
+                           device="cuda")
+        for eps in (1.0, 0.25):
+            kw = dict(Iu=Iu, Iv=Iv, eps=eps)
+            tag = f"{label} vol {tuple(vol.shape)} grid {Iu}x{Iv} eps {eps}"
+            k1 = sw.accumulate(vol, *args, **kw)
+            r1 = sw._accumulate(vol, *[a.double() for a in args], bf16=False, **kw)
+            errs["sw_accumulate"] = max(errs["sw_accumulate"], check(
+                "K1 sw_accumulate", k1.double(), r1, tag, 2e-5 * float(r1.abs().max()), 2e-4))
+            same_bits("K1 sw_accumulate", k1, lambda: sw.accumulate(vol, *args, **kw), tag)
+            k4 = sw.accumulate_adjoint(vol, *args, ibar, **kw)
+            r4 = sw._accumulate_adjoint(vol, *args, ibar, bf16=False, **kw)
+            errs["sw_accumulate_adjoint"] = max(errs["sw_accumulate_adjoint"], check(
+                "K4 sw_accumulate_adjoint", k4, r4, tag, 1e-4 * float(r4.abs().max()), 1e-3))
+            same_bits("K4 sw_accumulate_adjoint", k4,
+                      lambda: sw.accumulate_adjoint(vol, *args, ibar, **kw), tag)
+    _cuda.reset_launches()
+    return errs
+
+
 def phase_kernels(projector, pose16, pose4, time_ms=cuda_time_ms):
     """K1-K4 against their plain versions at the path's shapes.
 
@@ -266,7 +375,7 @@ def phase_kernels(projector, pose16, pose4, time_ms=cuda_time_ms):
 
     vol = projector.prepare_for_shearwarp()
     M, Wd, L = vol.shape
-    records, calls = {}, {}
+    records, calls = {}, []
     s_coarse, _, s_fine = _parse_scales("24,12,6", 100, projector.detector.height)
     cases = [("coarse B=16", pose16, s_coarse), ("fine B=4", pose4, s_fine)]
 
@@ -287,12 +396,15 @@ def phase_kernels(projector, pose16, pose4, time_ms=cuda_time_ms):
             k1 = sw.accumulate(vol, *args, **kw)
             r1 = sw._accumulate(vol, *f64(*args), bf16=False, **kw)
             e1 = check("K1 sw_accumulate", k1.double(), r1, tag, 2e-5 * float(r1.abs().max()), 2e-4)
+            same_bits("K1 sw_accumulate", k1, lambda: sw.accumulate(vol, *args, **kw), tag)
             log(f"    vs JAX bf16 recipe: {float((k1 - sw._accumulate(vol, *args, **kw)).abs().max()):.3e}")
             # K4 on the cotangent image of a random detector cotangent
             ibar = sw._warp_transpose(x["g"] * x["ws"], x["uc"], x["vc"], grid_shape=(Iu, Iv))
             k4 = sw.accumulate_adjoint(vol, *args, ibar, **kw)
             r4 = sw._accumulate_adjoint(vol, *args, ibar, bf16=False, **kw)
             e4 = check("K4 sw_accumulate_adjoint", k4, r4, tag, 1e-4 * float(r4.abs().max()), 1e-3)
+            same_bits("K4 sw_accumulate_adjoint", k4,
+                      lambda: sw.accumulate_adjoint(vol, *args, ibar, **kw), tag)
             log(f"    vs JAX bf16 recipe: {float((k4 - sw._accumulate_adjoint(vol, *args, ibar, **kw)).abs().max()):.3e}")
             if eps != 1.0:
                 continue
@@ -307,13 +419,20 @@ def phase_kernels(projector, pose16, pose4, time_ms=cuda_time_ms):
 
             # times at this shape (eps 1.0)
             reps = 20
-            calls.update(  # bound now: the loop variables move on
+            # library yardstick for the warps: grid_sample on the same image
+            gx = (x["vc"] / (Iv - 1)) * 2 - 1
+            gy = (x["uc"] / (Iu - 1)) * 2 - 1
+            grid_n = torch.stack([gx, gy], -1).reshape(B, 1, R, 2)
+            img = k1[:, None]
+            grid_sample = partial(F.grid_sample, img, grid_n, mode="bilinear", align_corners=True)
+            calls.append(dict(  # bound now: the loop variables move on
                 sw_accumulate=partial(sw.accumulate, vol, *args, Iu=Iu, Iv=Iv, eps=eps),
                 sw_accumulate_adjoint=partial(sw.accumulate_adjoint, vol, *args, ibar, Iu=Iu,
                                               Iv=Iv, eps=eps),
                 sw_warp=partial(sw.warp, k1, *warp_args),
                 sw_warp_grads=partial(sw.warp_with_grads, k1, *warp_args),
-            )
+                grid_sample=grid_sample,
+            ))
             t = {
                 "sw_accumulate": (
                     time_ms(lambda: sw.accumulate(vol, *args, Iu=Iu, Iv=Iv, eps=eps), reps),
@@ -326,13 +445,7 @@ def phase_kernels(projector, pose16, pose4, time_ms=cuda_time_ms):
                     None,
                 ),
             }
-            # library yardstick for the warps: grid_sample on the same image
-            gx = (x["vc"] / (Iv - 1)) * 2 - 1
-            gy = (x["uc"] / (Iu - 1)) * 2 - 1
-            grid_n = torch.stack([gx, gy], -1).reshape(B, 1, R, 2)
-            img = k1[:, None]
-            lib = time_ms(lambda: F.grid_sample(img, grid_n, mode="bilinear",
-                                                     align_corners=True), reps)
+            lib = time_ms(grid_sample, reps)
             t["sw_warp"] = (
                 time_ms(lambda: sw.warp(k1, x["uc"], x["vc"], x["ws"]), reps),
                 time_ms(lambda: sw._warp_plain(k1, x["uc"], x["vc"], x["ws"]), reps),
@@ -412,8 +525,8 @@ def phase_slab_kernels(projector, pose16, pose4, labels, chans=(1, 2), time_ms=c
     K5, K6 1e-4 + 1e-3 per field, K8 1e-4 + 1e-3, the difference 1e-2 of the
     directional derivative.
 
-    -> (records per kernel, one call per kernel at the last shape for the
-    profiler)."""
+    -> (records per kernel, one per shape; one call per kernel and shape for
+    the profiler)."""
     import torch
     from xvr_tpu_torch.registrar.base import _parse_scales
     from xvr_tpu_torch.render import _cuda
@@ -424,7 +537,7 @@ def phase_slab_kernels(projector, pose16, pose4, labels, chans=(1, 2), time_ms=c
     M, Wd, L = vol_shape
     lab = sp.pack_labels(labels, projector.pallas_perm)
     C = len(chans) + 1
-    records, calls = {}, {}
+    records, calls = {}, []
     s_coarse, _, s_fine = _parse_scales("24,12,6", 100, projector.detector.height)
     for label, pose, scale in (("coarse B=16", pose16, s_coarse), ("fine B=4", pose4, s_fine)):
         proj = projector.rescale_detector(scale)
@@ -482,12 +595,12 @@ def phase_slab_kernels(projector, pose16, pose4, labels, chans=(1, 2), time_ms=c
 
         # times at this shape
         reps = 20
-        calls.update(  # bound now: the loop variables move on
+        calls.append(dict(  # bound now: the loop variables move on
             slab_forward=partial(sp.slab_forward, vol, fields),
             slab_backward=partial(sp.slab_backward, vol, fields, g),
             slab_channels=partial(sp.slab_channels, vol, lab, chans, fields),
             slab_siddon=partial(sp.slab_siddon, vol, fields),
-        )
+        ))
         plain = dict(
             slab_forward=partial(sp._slab_forward, vol, fields),
             slab_backward=partial(sp._slab_backward, vol, fields, g),
@@ -503,8 +616,8 @@ def phase_slab_kernels(projector, pose16, pose4, labels, chans=(1, 2), time_ms=c
             "slab_siddon": (vol_b + 8 * ray_b, SLAB_OPS["slab_siddon"] * sid),
         }
         errs = {"slab_forward": e5, "slab_backward": e6, "slab_channels": e7, "slab_siddon": e8}
-        for name in calls:
-            ms, plain_ms = time_ms(calls[name], reps), time_ms(plain[name], 2, warmup=1)
+        for name, call in calls[-1].items():
+            ms, plain_ms = time_ms(call, reps), time_ms(plain[name], 2, warmup=1)
             nbytes, nops = bounds[name]
             t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, nops / F32_FLOPS * 1e3
             rec = dict(
@@ -716,6 +829,9 @@ def label_and_siddon_renders(volume, gt_pose, gt_proj, gt_img, pose4, chans=(1, 
             dict(label_channel_shares=per_ch, label_sum_err=diff, siddon_corr=corr))
 
 
+SW_KERNELS = ("sw_accumulate", "sw_warp", "sw_warp_grads", "sw_accumulate_adjoint")
+
+
 def main() -> int:
     import torch
 
@@ -770,25 +886,31 @@ def main() -> int:
         f"{slab_proj.pallas_perm} ({slab_proj.renderer})")
     if slab_proj.renderer != "trilinear_pallas":
         raise AssertionError(f"with_pallas declined the bench poses: {slab_proj.renderer}")
-    records, calls = phase_kernels(sw_proj, pose16, pose4)
+    records, sw_calls = phase_kernels(sw_proj, pose16, pose4)
+    edge_errs = phase_edge_kernels(sw_proj.prepare_for_shearwarp())
     slab_records, slab_calls = phase_slab_kernels(slab_proj, pose16, pose4, vol.mask)
     records.update(slab_records)
-    calls.update(slab_calls)
-    prof = profiler_ms(calls)
-    for name, ms in prof.items():
-        records[name][-1]["profiler_ms"] = ms
-        log(f"  profiler {name} [{records[name][-1]['shape']}]: device "
-            f"{'not measured' if ms is None else f'{ms:.4f} ms'} per call, CUDA events "
-            f"{records[name][-1]['ms']:.4f} ms")
+    # device time of every kernel at both shapes (coarse, fine)
+    for idx, calls in enumerate(zip(sw_calls, slab_calls)):
+        lib, lib_names = library_device_ms(calls[0].pop("grid_sample"))
+        for name in ("sw_warp", "sw_warp_grads"):
+            records[name][idx]["library_profiler_ms"] = lib
+        log(f"  profiler grid_sample (K2/K3's library call) [{records['sw_warp'][idx]['shape']}]: "
+            f"device {'not measured' if lib is None else f'{lib:.4f} ms'} per call over "
+            f"{lib_names}, CUDA events {records['sw_warp'][idx]['library_ms']:.4f} ms")
+        prof = profiler_ms({**calls[0], **calls[1]})
+        for name, ms in prof.items():
+            records[name][idx]["profiler_ms"] = ms
+            log(f"  profiler {name} [{records[name][idx]['shape']}]: device "
+                f"{'not measured' if ms is None else f'{ms:.4f} ms'} per call, CUDA events "
+                f"{records[name][idx]['ms']:.4f} ms")
     log(f"kernels: all checks passed ({time.perf_counter() - t0:.1f} s)")
 
     # 4. the slices, each with the launch counts of its own run
     with tempfile.TemporaryDirectory(prefix="xvr_chip_smoke_") as tmp:
         workdir = Path(tmp)
         gt_pose, gt_proj, gt_img = write_scene(workdir, hu, aff)
-        sw_launches, sw_stats = register(
-            workdir, gt_pose, fids, "trilinear_fast",
-            ("sw_accumulate", "sw_warp", "sw_warp_grads", "sw_accumulate_adjoint"))
+        sw_launches, sw_stats = register(workdir, gt_pose, fids, "trilinear_fast", SW_KERNELS)
         slab_launches, slab_stats = register(
             workdir, gt_pose, fids, "trilinear_pallas", ("slab_forward", "slab_backward"),
             no_shearwarp=True)
@@ -797,12 +919,16 @@ def main() -> int:
                 "slab_forward": slab_launches["slab_forward"],
                 "slab_backward": slab_launches["slab_backward"], **render_launches}
 
-    # one record per kernel: the fine stage's shape
+    # one record per kernel: the fine stage's shape, the coarse one beside it
     kernels = []
     for name, recs in records.items():
         rec = dict(recs[-1])
         rec["launches"] = launches[name]
         rec["max_abs_err"] = max(r["max_abs_err"] for r in recs)
+        rec["edge_max_abs_err"] = edge_errs.get(name)
+        rec["coarse"] = {k: recs[0].get(k) for k in ("shape", "ms", "profiler_ms", "bound_ms",
+                                                     "plain_ms", "library_ms",
+                                                     "library_profiler_ms")}
         kernels.append(rec)
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print("slices " + json.dumps({"shearwarp": sw_stats, "slab": slab_stats, "renders": render_stats}),

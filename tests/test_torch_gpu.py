@@ -59,6 +59,65 @@ def test_adjoint_kernel_matches_plain(cuda, eps, k0, k1, sgnval):
     got = sw.accumulate_adjoint(vol, *args, ibar, **kw)
     ref = sw._accumulate_adjoint(vol, *args, ibar, bf16=False, **kw)
     torch.testing.assert_close(got, ref, rtol=1e-3, atol=1e-4 * float(ref.abs().max()))
+    assert torch.equal(got, sw.accumulate_adjoint(vol, *args, ibar, **kw))
+
+
+# Beyond the path's inputs: a tile's rows span more than one staged chunk
+# (steep rows), its lanes limit a chunk to a few rows (wide lanes), whole
+# tiles sit at floor(wpos) = -1 and floor(lpos) = L - 1 of an odd-L volume
+# (plain loads instead of cp.async), and a volume of 2500 lanes whose boxes
+# grow past a chunk's 2048 bf16 (read from global memory); every grid is
+# ragged. At 2500 lanes one float32 ulp of a position is 2.4e-4 lane, so that
+# case takes binary-fraction geometry whose float32 positions are exact, and
+# the float64 reference sees the kernel's positions.
+EDGE_CASES = {
+    "steep_rows": dict(M=24, Wd=96, L=36, Iu=40, Iv=70, s=(-8.0, 48.0, 18.0), u=(-2.5, 0.25),
+                       v=(-0.5, 0.03)),
+    "wide_lanes": dict(M=6, Wd=40, L=500, Iu=20, Iv=80, s=(-12.0, 20.0, 250.0), u=(-0.6, 0.06),
+                       v=(-15.0, 0.375)),
+    "edge_odd_lanes": dict(M=24, Wd=20, L=37, Iu=20, Iv=40, s=(-8.0, -0.5, 36.5), u=(0.0, 0.001),
+                           v=(0.0, 0.001)),
+    "wide_volume": dict(M=6, Wd=20, L=2500, Iu=24, Iv=70, s=(-12.0, 10.0, 1250.0),
+                        u=(-0.25, 1 / 64), v=(-85.0, 2.5), exact=True),
+}
+
+
+def _edge_inputs(dev, seed, M, Wd, L, Iu, Iv, s, u, v, B=3, exact=False):
+    """Per image, the case's geometry moved by a random jitter, or with
+    ``exact`` by binary fractions (source offsets of 1/8 and 1/4, slopes
+    scaled by 1.25 and 0.75)."""
+    rng = np.random.default_rng(seed)
+    f = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)  # noqa: E731
+    vol = f(rng.uniform(0.0, 1.0, (M, Wd, L))).to(torch.bfloat16)
+    if exact:
+        ds = np.arange(B)[:, None] * np.array([0.25, 0.125, 0.125])
+        jit = lambda x: f(x * np.array([1.0, 1.25, 0.75])[:B])  # noqa: E731
+    else:
+        ds = rng.normal(0.0, 0.2, (B, 3))
+        jit = lambda x: f(x * (1.0 + rng.uniform(-0.05, 0.05, B)))  # noqa: E731
+    args = (f(np.array(s) + ds), f(np.ones(B)), jit(u[0]), jit(u[1]), jit(v[0]), jit(v[1]))
+    return vol, args, (Iu, Iv)
+
+
+@pytest.mark.parametrize("eps", [1.0, 0.25])
+@pytest.mark.parametrize("case", list(EDGE_CASES))
+def test_tiled_kernels_steep_and_edge(cuda, case, eps):
+    """K1 and K4 on geometry the bench does not reach, against their plain
+    versions with the tolerances above; two calls give identical bits."""
+    from xvr_tpu_torch.render import shearwarp as sw
+
+    vol, args, (Iu, Iv) = _edge_inputs(cuda, 3, **EDGE_CASES[case])
+    kw = dict(Iu=Iu, Iv=Iv, eps=eps)
+    got = sw.accumulate(vol, *args, **kw)
+    ref = sw._accumulate(vol, *[a.double() for a in args], bf16=False, **kw)
+    assert float(ref.abs().max()) > 0
+    torch.testing.assert_close(got.double(), ref, rtol=2e-4, atol=2e-5 * float(ref.abs().max()))
+    assert torch.equal(got, sw.accumulate(vol, *args, **kw))
+    ibar = torch.randn((3, Iu, Iv), generator=torch.Generator(cuda).manual_seed(4), device=cuda)
+    g = sw.accumulate_adjoint(vol, *args, ibar, **kw)
+    r = sw._accumulate_adjoint(vol, *args, ibar, bf16=False, **kw)
+    torch.testing.assert_close(g, r, rtol=1e-3, atol=1e-4 * float(r.abs().max()))
+    assert torch.equal(g, sw.accumulate_adjoint(vol, *args, ibar, **kw))
 
 
 def test_warp_kernels_match_plain(cuda):

@@ -1,6 +1,6 @@
-"""The port stands alone: no module of ``xvr_tpu_torch`` and not
-``chip_smoke.py`` imports JAX or the JAX package, and importing the port
-leaves JAX unloaded."""
+"""The port stands alone: no module of ``xvr_tpu_torch``, not
+``chip_smoke.py`` and not ``scripts/chip_mtre_spread.py`` imports JAX or the
+JAX package, and importing the port leaves JAX unloaded."""
 
 import ast
 import subprocess
@@ -10,7 +10,8 @@ from pathlib import Path
 import pytest
 
 REPO = Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((REPO / "xvr_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+PORT_FILES = sorted((REPO / "xvr_tpu_torch").rglob("*.py")) + [
+    REPO / "chip_smoke.py", REPO / "scripts" / "chip_mtre_spread.py"]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "xvr_tpu")
 
 

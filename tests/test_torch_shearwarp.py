@@ -274,3 +274,194 @@ def test_unported_options_raise(scene):
                                     mask=torch.ones(N, N, N, dtype=torch.int32), labels=(1,))
     with pytest.raises(NotImplementedError, match="grid_bounds"):
         tsw.raymarch_trilinear_fast(*args, perm=scene["perm"], grid_bounds=(0, 1, 0, 1, 1))
+
+
+# ---------------------------------------------------------------------------
+# A float64 model of the tiled K1/K4 march of csrc/shearwarp.cu, step by step:
+# tiles, the per-slab block-uniform skips from the tile's corner positions,
+# the staged box of rows and lanes in chunks, the lane pass and the row pass.
+# It must equal the dense plain versions, so the kernels' plan drops nothing.
+# ---------------------------------------------------------------------------
+
+# the kernels' constants: a (TI, TJ) tile of the slope grid per block, staged
+# chunks of at most (STAGE_ELEMS bf16, STAGE_ROWS rows)
+SW_TILE = (16, 64)
+SW_STAGE = (2048, 32)
+
+
+def stage_rows(n_lanes: int, stage: tuple[int, int] = SW_STAGE) -> int:
+    """Rows of one chunk of a box whose rows hold ``n_lanes`` lanes, as the
+    kernels choose it: ``min(rows, elements // n_lanes)``, or ``rows`` for a
+    box too wide to stage, which the lane pass reads from global memory."""
+    elems, rows = stage
+    return rows if n_lanes > elems else min(rows, elems // n_lanes)
+
+
+def _tiled_model(vol, s_p, sgn, u0, du, v0, dv, Ibar=None, *, Iu, Iv, eps, k0=0, k1=None,
+                 tile=SW_TILE, stage=SW_STAGE):
+    """-> (I (B, Iu, Iv), stats) without ``Ibar``, else ((gw, gl), stats);
+    stats count what the plan met: chunks per slab, skipped slabs, valid
+    samples at floor(wpos) = -1 and Wd - 1, samples with one axis out, boxes
+    too wide to stage."""
+    M, Wd, L = vol.shape
+    k1 = M if k1 is None else k1
+    TI, TJ = tile
+    f = torch.float64
+    S_all = vol.to(f)
+    B = s_p.shape[0]
+    adj = Ibar is not None
+    hat = lambda x: tsw._hat(x, eps)  # noqa: E731
+    hatp = lambda x: tsw._hat_prime(x, eps)  # noqa: E731
+    out = torch.zeros((B, Iu, Iv), dtype=f)
+    gw, gl = torch.zeros((B, Iu), dtype=f), torch.zeros((B, Iv), dtype=f)
+    stats = dict(max_chunks=0, skipped=0, w_first=0, w_last=0, one_axis=0, unstaged=0)
+    for b in range(B):
+        s0, s1, s2 = (s_p[b, a].item() for a in range(3))
+        for i0 in range(0, Iu, TI):
+            u = u0[b] + du[b] * torch.arange(i0, min(i0 + TI, Iu), dtype=f)
+            for j0 in range(0, Iv, TJ):
+                v = v0[b] + dv[b] * torch.arange(j0, min(j0 + TJ, Iv), dtype=f)
+                if adj:
+                    ib = Ibar[b, i0:i0 + TI, j0:j0 + TJ].to(torch.bfloat16).to(f)
+                    if not bool((ib != 0).any()):
+                        continue
+                acc_a = torch.zeros((len(u), len(v)), dtype=f)
+                acc_b = torch.zeros_like(acc_a)
+                for k in range(k0, k1):
+                    c = float(k) - s0
+                    wk = min(max(sgn[b].item() * c + 0.5, 0.0), 1.0)
+                    wpos, lpos = s1 + c * u, s2 + c * v
+                    wf, lf = torch.floor(wpos), torch.floor(lpos)
+                    # the plan: the tile's range from its corner rows and columns
+                    wmin, wmax = (np.floor(g(wpos[0].item(), wpos[-1].item())) for g in (min, max))
+                    lmin, lmax = (np.floor(g(lpos[0].item(), lpos[-1].item())) for g in (min, max))
+                    assert wmin <= wf.min() and wf.max() <= wmax
+                    assert lmin <= lf.min() and lf.max() <= lmax
+                    if wk == 0.0 or wmax < -1 or wmin >= Wd or lmax < -1 or lmin >= L:
+                        stats["skipped"] += 1
+                        continue
+                    wlo, whi = int(max(wmin, 0)), int(min(wmax + 1, Wd - 1))
+                    la, lhi = int(max(lmin, 0)) & ~1, int(min(lmax + 1, L - 1))
+                    npad = (lhi - la + 2) & ~1
+                    rpc = stage_rows(npad, stage)
+                    stats["unstaged"] += npad > stage[0]
+                    # per-column and per-row flags and hats
+                    lok = (lf >= -1) & (lf < L)
+                    wok = (wf >= -1) & (wf < Wd)
+                    fl, fw = lpos - lf, wpos - wf
+                    hl0, hl1 = hat(fl) * lok, hat(fl - 1.0) * lok
+                    hp0, hp1 = hatp(fl) * lok, hatp(fl - 1.0) * lok
+                    hw0, hw1 = hat(fw) * wok, hat(fw - 1.0) * wok
+                    hwp0, hwp1 = hatp(fw) * wok, hatp(fw - 1.0) * wok
+                    l0, w0 = lf.to(torch.int64), wf.to(torch.int64)
+                    stats["w_first"] += int((wok & (w0 == -1)).sum()) * int(lok.sum())
+                    stats["w_last"] += int((wok & (w0 == Wd - 1)).sum()) * int(lok.sum())
+                    stats["one_axis"] += int(wok.sum()) * int((~lok).sum()) + int((~wok).sum()) * int(lok.sum())
+                    chunks = range(wlo, whi + 1, rpc)
+                    stats["max_chunks"] = max(stats["max_chunks"], len(chunks))
+                    for wc in chunks:
+                        nr = min(rpc, whi - wc + 1)
+                        box = torch.zeros((nr, npad), dtype=f)
+                        n = min(npad, L - la)
+                        box[:, :n] = S_all[k, wc:wc + nr, la:la + n]
+                        # lane pass: lanes -1 and L read as zero
+                        ia, ibb = l0 - la, l0 + 1 - la
+                        sa = box[:, ia.clamp(0, npad - 1)] * ((l0 >= 0) & lok)
+                        sb = box[:, ibb.clamp(0, npad - 1)] * ((l0 + 1 < L) & lok)
+                        T, Tp = hl0 * sa + hl1 * sb, hp0 * sa + hp1 * sb  # (nr, nj)
+                        # row pass: taps outside this chunk's rows add nothing
+                        r0 = w0 - wc
+                        in0 = ((r0 >= 0) & (r0 < nr) & wok)[:, None]
+                        in1 = ((r0 + 1 >= 0) & (r0 + 1 < nr) & wok)[:, None]
+                        t0, t1 = T[r0.clamp(0, nr - 1)] * in0, T[(r0 + 1).clamp(0, nr - 1)] * in1
+                        if adj:
+                            p0 = Tp[r0.clamp(0, nr - 1)] * in0
+                            p1 = Tp[(r0 + 1).clamp(0, nr - 1)] * in1
+                            acc_a += wk * (hwp0[:, None] * t0 + hwp1[:, None] * t1)
+                            acc_b += wk * (hw0[:, None] * p0 + hw1[:, None] * p1)
+                        else:
+                            acc_a += wk * (hw0[:, None] * t0 + hw1[:, None] * t1)
+                rows, cols = slice(i0, i0 + len(u)), slice(j0, j0 + len(v))
+                if adj:
+                    gw[b, rows] += (acc_a * ib).sum(1)
+                    gl[b, cols] += (acc_b * ib).sum(0)
+                else:
+                    out[b, rows, cols] = acc_a
+    return ((gw, gl) if adj else out), stats
+
+
+# (name, geometry overrides, stage, what the plan must meet)
+MODEL_CASES = [
+    ("bench_like", dict(), SW_STAGE, ()),
+    ("eps_quarter", dict(eps=0.25), SW_STAGE, ()),
+    ("reverse_subrange", dict(sgnval=-1.0, s0=20.0, k0=3, k1=13), SW_STAGE, ()),
+    ("reverse_subrange_eps_quarter", dict(sgnval=-1.0, s0=20.0, k0=5, k1=16, eps=0.25),
+     SW_STAGE, ()),
+    ("source_inside", dict(s0=5.3), SW_STAGE, ("skipped",)),
+    ("steep_rows", dict(Wd=96, s1=48.0, u0=-2.5, du=0.25, Iu=40), SW_STAGE,
+     ("max_chunks", "w_first", "w_last", "one_axis", "skipped")),
+    ("steep_both_small_stage", dict(u0=-1.0, du=0.12, dv=0.09, Iu=20, Iv=70, v0=-3.0), (64, 32),
+     ("max_chunks", "w_first", "w_last", "one_axis")),
+    ("steep_eps_quarter", dict(Wd=96, s1=48.0, u0=-2.5, du=0.25, eps=0.25, sgnval=-1.0, s0=20.0),
+     SW_STAGE, ("max_chunks", "one_axis")),
+    ("whole_tiles", dict(Iu=32, Iv=128), SW_STAGE, ()),
+    # whole tiles whose rows sit at floor(wpos) = -1 (lanes at L - 1), or at Wd - 1
+    ("edge_tile_low", dict(s1=-0.5, u0=0.0, du=0.001, s2=29.5, v0=0.0, dv=0.001), SW_STAGE,
+     ("w_first",)),
+    ("edge_tile_high", dict(s1=23.5, u0=0.0, du=0.001, eps=0.25), SW_STAGE, ("w_last",)),
+    ("odd_lanes_many_tiles", dict(L=31, Iu=40, Iv=150, dv=0.008), SW_STAGE, ()),
+    # boxes wider than a chunk: read from global memory, rows still chunked
+    ("wide_lanes_unstaged", dict(Wd=40, s1=20.0, L=90, s2=45.0, v0=-3.0, dv=0.09, Iv=70),
+     (64, 4), ("unstaged", "max_chunks", "one_axis")),
+]
+
+
+def _model_inputs(seed, sgnval=1.0, eps=1.0, B=2, M=16, Wd=24, L=30, Iu=20, Iv=40, s0=-8.0,
+                  s1=12.0, s2=15.0, u0=-0.45, du=0.045, v0=-0.5, dv=0.025, k0=0, k1=None):
+    rng = np.random.default_rng(seed)
+    vol = torch.as_tensor(rng.uniform(0.0, 1.0, (M, Wd, L))).to(torch.bfloat16)
+    s_p = torch.as_tensor(np.array([s0, s1, s2]) + rng.normal(0.0, 0.3, (B, 3)))
+    jit = lambda x: torch.as_tensor(x * (1.0 + rng.uniform(-0.05, 0.05, B)))  # noqa: E731
+    args = (s_p, torch.full((B,), sgnval, dtype=torch.float64), jit(u0), jit(du), jit(v0), jit(dv))
+    return vol, args, dict(Iu=Iu, Iv=Iv, eps=eps, k0=k0, k1=k1)
+
+
+def _check_stats(stats, expect):
+    for key in expect:
+        assert stats[key] > (1 if key == "max_chunks" else 0), (key, stats)
+
+
+@pytest.mark.parametrize("name,geo,stage,expect", MODEL_CASES, ids=[c[0] for c in MODEL_CASES])
+def test_tiled_accumulate_model_matches_plain(name, geo, stage, expect):
+    """K1's tiled schedule (float64 model) equals the dense plain version."""
+    vol, args, kw = _model_inputs(11, **geo)
+    got, stats = _tiled_model(vol, *args, stage=stage, **kw)
+    ref = tsw._accumulate(vol, *args, bf16=False, **kw)
+    _check_stats(stats, expect)
+    assert float(ref.abs().max()) > 0
+    torch.testing.assert_close(got, ref, rtol=1e-10, atol=1e-10 * float(ref.abs().max()))
+
+
+@pytest.mark.parametrize("name,geo,stage,expect", MODEL_CASES, ids=[c[0] for c in MODEL_CASES])
+def test_tiled_adjoint_model_matches_plain(name, geo, stage, expect):
+    """K4's tiled schedule (float64 model, per-row sums gw and gl) equals the
+    dense plain version; an all-zero tile of Ibar is skipped."""
+    vol, args, kw = _model_inputs(12, **geo)
+    B = args[0].shape[0]
+    ibar = torch.as_tensor(np.random.default_rng(13).normal(0.0, 1.0, (B, kw["Iu"], kw["Iv"])))
+    TI, TJ = SW_TILE
+    ibar[:, :TI, TJ:2 * TJ] = 0.0  # a tile outside the view, where there are several
+    (gw, gl), stats = _tiled_model(vol, *args, ibar, stage=stage, **kw)
+    rw, rl = tsw._adjoint_rows(vol, *args, ibar, bf16=False, **kw)
+    _check_stats(stats, expect)
+    for got, ref in ((gw, rw), (gl, rl)):
+        assert float(ref.abs().max()) > 0
+        torch.testing.assert_close(got, ref, rtol=1e-10, atol=1e-10 * float(ref.abs().max()))
+
+
+def test_stage_rows_rule():
+    assert stage_rows(36) == SW_STAGE[1]
+    assert stage_rows(258) == SW_STAGE[0] // 258
+    assert stage_rows(30, (64, 32)) == 2
+    assert stage_rows(SW_STAGE[0]) == 1
+    assert stage_rows(SW_STAGE[0] + 2) == SW_STAGE[1]  # unstaged

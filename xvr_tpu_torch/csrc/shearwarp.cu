@@ -6,15 +6,29 @@
 //   K3 sw_warp_grads          replaces _warp_grads_kernel (xvr_tpu/render/shearwarp.py:400)
 //   K4 sw_accumulate_adjoint  replaces _adj_kernel    (xvr_tpu/render/shearwarp.py:955)
 //
-// The TPU kernels build dense hat matrices and feed them to the MXU. The hat
-// profile hat_eps(x) = clip(((1 + eps)/2 - |x|)/eps, 0, 1) has support
-// half-width (1 + eps)/2 <= 1, so for every slab a slope-grid row touches at
-// most two voxels along the window axis and a column at most two along the
-// lane axis: the dense products are almost all zeros. These kernels evaluate
-// the band directly, one thread per output element, in f32 from the bf16
-// volume (K4 keeps its sums in double). No tensor cores, TMA or wgmma yet:
-// the first version is the simple one, and its times on the H100 are
-// recorded in PERF.md.
+// The hat profile hat_eps(x) = clip(((1 + eps)/2 - |x|)/eps, 0, 1) has
+// support half-width (1 + eps)/2 <= 1, so in every slab a slope-grid row
+// touches at most two voxel rows and a column at most two lanes. The
+// geometry is separable: for one image b and slab k, the window position
+// wpos = s1 + c (u0 + du i) depends only on the row i, the lane position
+// lpos = s2 + c (v0 + dv j) only on the column j, and w_k only on k. So a
+// slab's contribution is w_k Hw_k^T S_k Hl_k with two band matrices two taps
+// wide. The TPU kernels build both hat matrices densely in VMEM and run two
+// MXU products. K1 and K4 here keep the factorisation and drop the dense
+// matrices: a block owns a TI x TJ tile of the slope grid of one image and
+// walks the slabs in order; per slab it stages the few volume rows and lanes
+// the tile touches in shared memory with cp.async (a ring of NS chunks, so
+// the next slabs load while this one computes), runs a lane pass (T[w, j] =
+// hl0(j) S[w, l0(j)] + hl1(j) S[w, l0(j) + 1]) and then a row pass
+// (acc(i, j) += w_k (hw0(i) T[w0(i), j] + hw1(i) T[w0(i) + 1, j])). Column
+// hats are computed once per (k, j), row hats once per (k, i), and each T
+// entry once per tile, where the first version did all of it per sample.
+//
+// No tensor cores: each band is two taps wide, so a dense wgmma product of
+// the hat matrices would do span/2 times or more useless work, and it would
+// need bf16 hat factors, which the f32 checks against the plain versions
+// (_accumulate(..., bf16=False)) do not allow. The gain comes from the
+// separability, shared memory and the asynchronous copies.
 //
 // Every entry point launches on the caller's stream, allocates nothing, and
 // returns cudaGetLastError() so the Python wrapper can raise on a refused
@@ -26,17 +40,28 @@
 
 namespace {
 
-__device__ __forceinline__ float hat_eps(float x, float eps) {
-  float h = ((1.0f + eps) * 0.5f - fabsf(x)) / eps;
-  return fminf(fmaxf(h, 0.0f), 1.0f);
+// The hat profile and its slope for one eps, with 1/eps precomputed: for the
+// eps the renderers use (1 and 0.25, powers of two) the products below equal
+// the plain versions' divisions exactly.
+struct Hat {
+  float hi, lo, inv;  // (1 + eps)/2, (1 - eps)/2, 1/eps
+};
+
+__device__ __forceinline__ Hat make_hat(float eps) {
+  return {(1.0f + eps) * 0.5f, (1.0f - eps) * 0.5f, 1.0f / eps};
+}
+
+// clip(((1 + eps)/2 - |x|)/eps, 0, 1)
+__device__ __forceinline__ float hat_eps(const Hat& h, float x) {
+  return fminf(fmaxf((h.hi - fabsf(x)) * h.inv, 0.0f), 1.0f);
 }
 
 // d hat/dx: -sign(x)/eps on the ramps (1 - eps)/2 < |x| < (1 + eps)/2.
-__device__ __forceinline__ float hat_prime(float x, float eps) {
-  float ax = fabsf(x);
-  bool ramp = (ax > (1.0f - eps) * 0.5f) && (ax < (1.0f + eps) * 0.5f);
-  float sg = (x > 0.0f) ? 1.0f : ((x < 0.0f) ? -1.0f : 0.0f);
-  return ramp ? -sg / eps : 0.0f;
+__device__ __forceinline__ float hat_prime(const Hat& h, float x) {
+  const float ax = fabsf(x);
+  const bool ramp = (ax > h.lo) && (ax < h.hi);
+  const float sg = (x > 0.0f) ? 1.0f : ((x < 0.0f) ? -1.0f : 0.0f);
+  return ramp ? -sg * h.inv : 0.0f;
 }
 
 struct SlabParams {
@@ -56,60 +81,496 @@ __device__ __forceinline__ SlabParams load_params(const float* __restrict__ para
   return {p[0], p[1], p[2], p[3], p[4], p[5], p[6], p[7]};
 }
 
+// bf16 bits -> f32, exactly
+__device__ __forceinline__ float bf16_bits(uint16_t x) { return __uint_as_float((uint32_t)x << 16); }
+
 // ---------------------------------------------------------------------------
-// K1: I[b, i, j] = sum_k w_k sum_{w,l} hat(wpos - w) hat(lpos - l) S_k[w, l]
-//     wpos = s1 + (k - s0) (u0 + du i),  lpos = s2 + (k - s0) (v0 + dv j)
-//     w_k = clip(sgn (k - s0) + 0.5, 0, 1)
-// Bound on the H100: bytes. The roofline time is that of reading the bf16
-// volume once (33.5 MB at 256^3, ~10 us); the band's ~8 FLOP per sample are
-// below it. This simple version runs far above that bound, most likely on
-// the per-thread gather of 4 bf16 taps per slab, served from L2 (the volume
-// fits in its 50 MB). The design keeps threadIdx.x on the lane-axis output
-// j, so a warp's taps fall on one or two volume rows and coalesce, and it
-// skips whole slabs behind the source (w_k == 0) uniformly per image.
+// K1 and K4: the tiled, separable march.
+//
+// Tiling. One block owns image b and a TI x TJ tile of the slope grid. It
+// runs KG warp groups of NT threads, each with its own pipeline, barrier and
+// buffers below; group g marches the slabs k with (k - k0) % KG == g, so a
+// block keeps KG slabs in flight (the march is bound by the latency of its
+// per-slab chain, not by issue: PERF.md). In each group thread (tx, ty) =
+// (gt % TJ, gt / TJ) owns column j0 + tx and rows i0 + ty + NTY q, q < RPT,
+// and keeps their sums in registers across its slabs; at the end the groups'
+// sums are added in group order (no atomics, no split over blocks: the bits
+// do not depend on the schedule). Fine stage: B=4, 256^2 grid -> 256 blocks;
+// coarse: B=16, 128^2 -> 256 blocks, for 132 SMs.
+//
+// Plan. For each slab of a window of PLAN slabs, one thread computes w_k and
+// the box of volume rows [wlo, whi] and lanes [la, la + npad) that the
+// tile's valid samples read. Each position rounds monotonically in i and j,
+// so the tile's extremes are at its corner rows and columns. A slab is
+// skipped by the whole block when w_k == 0 or the tile's wpos range misses
+// [-1, Wd) or its lpos range misses [-1, L). Inside the tile a sample counts
+// only if floor(wpos) is in [-1, Wd) (a per-row flag) and floor(lpos) in
+// [-1, L) (a per-column flag), as in the plain versions.
+//
+// Staging. The box is copied row by row into shared memory, STAGE_ROWS rows
+// and STAGE_ELEMS bf16 at most per chunk, into a ring of NS chunks whose
+// loads run NS - 1 chunks ahead of the compute; a span larger than a chunk
+// (steep poses, coarse grids) is walked in several chunks of the same slab,
+// so no row is ever dropped. Copies are 4-byte cp.async when L is even and
+// the volume 4-byte aligned (lanes start at an even lane), plain loads
+// otherwise. A box whose row is wider than a chunk (more than STAGE_ELEMS
+// lanes: very wide volumes at steep poses) is not staged: its chunks of
+// STAGE_ROWS rows are read by the lane pass straight from global memory, so
+// any L works.
+//
+// Passes. Per slab each thread computes its column's hats, and the threads
+// gt < TI of a group their row's. Per chunk the row threads publish (hw0,
+// hw1) and the offsets of their two taps' T rows, or of a zero row when a tap
+// lies outside the chunk, so the row pass is two shared loads and three FMAs
+// per output.
+//
+// Bound on the H100 (3.35 TB/s, 67 TFLOP/s f32): K1 by bytes, the bf16
+// volume read once (33.5 MB at 256^3, ~10 us), its ~8 FLOP per sample below
+// that; K4 by operations (~16 FLOP per sample, ~16 us at the fine stage).
+// What holds the kernels above it is the latency of each group's per-slab
+// chain (two group barriers around dependent shared-memory loads) at 16-24
+// warps per SM, and for K4 also its double adds under a 128-register cap
+// (PERF.md).
 // ---------------------------------------------------------------------------
-__global__ void sw_accumulate_kernel(const __nv_bfloat16* __restrict__ vol, int Wd, int L,
-                                     const float* __restrict__ params, float* __restrict__ out,
-                                     int Iu, int Iv, float eps, int k0, int k1) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  const int i = blockIdx.y * blockDim.y + threadIdx.y;
-  const int b = blockIdx.z;
-  if (i >= Iu || j >= Iv) return;
-  const SlabParams p = load_params(params, b);
-  const float u = affine_rn(p.u0, p.du, (float)i);
-  const float v = affine_rn(p.v0, p.dv, (float)j);
-  float acc = 0.0f;
-  for (int k = k0; k < k1; ++k) {
-    const float c = __fsub_rn((float)k, p.s0);
-    const float wk = fminf(fmaxf(affine_rn(0.5f, p.sgn, c), 0.0f), 1.0f);
-    if (wk == 0.0f) continue;
-    const float wpos = affine_rn(p.s1, c, u);
-    const float lpos = affine_rn(p.s2, c, v);
-    const float wf = floorf(wpos), lf = floorf(lpos);
-    if (wf < -1.0f || wf >= (float)Wd || lf < -1.0f || lf >= (float)L) continue;
-    const int w0 = (int)wf, l0 = (int)lf;
-    const float fw = wpos - wf, fl = lpos - lf;
-    const float hw0 = hat_eps(fw, eps), hw1 = hat_eps(fw - 1.0f, eps);
-    const float hl0 = hat_eps(fl, eps), hl1 = hat_eps(fl - 1.0f, eps);
-    const __nv_bfloat16* slab = vol + (size_t)k * Wd * L;
-    float s = 0.0f;
-    if (w0 >= 0) {
-      const __nv_bfloat16* row = slab + (size_t)w0 * L;
-      float r = 0.0f;
-      if (l0 >= 0) r += hl0 * __bfloat162float(row[l0]);
-      if (l0 + 1 < L) r += hl1 * __bfloat162float(row[l0 + 1]);
-      s += hw0 * r;
-    }
-    if (w0 + 1 < Wd) {
-      const __nv_bfloat16* row = slab + (size_t)(w0 + 1) * L;
-      float r = 0.0f;
-      if (l0 >= 0) r += hl0 * __bfloat162float(row[l0]);
-      if (l0 + 1 < L) r += hl1 * __bfloat162float(row[l0 + 1]);
-      s += hw1 * r;
-    }
-    acc += wk * s;
+// The values are the tuned ones (PERF.md). K1 and K4 share the tile and the
+// staging; each has its own warp groups (K4's double sums take more
+// registers).
+constexpr int TI = 16;                 // slope-grid rows per tile
+constexpr int TJ = 64;                 // slope-grid columns per tile
+constexpr int NS = 4;                  // staged chunks in a group's cp.async ring
+constexpr int STAGE_ELEMS = 2048;      // bf16 per staged chunk
+constexpr int STAGE_ROWS = 32;         // rows per staged chunk (T's height)
+constexpr int TROWS = STAGE_ROWS + 1;  // T's rows and its zero row
+static_assert(NS >= 2 && STAGE_ELEMS % 2 == 0, "stages");
+
+template <bool ADJ>
+struct Cfg {
+  static constexpr int NT = 128;             // threads per warp group
+  static constexpr int KG = ADJ ? 2 : 3;     // warp groups (alternate slabs)
+  static constexpr int MINB = 2;             // blocks an SM must hold
+  static constexpr int NB = NT * KG;         // threads per block
+  static constexpr int NTY = NT / TJ;        // thread rows of a group
+  static constexpr int RPT = TI / NTY;       // outputs per thread
+  static constexpr int PLAN = NB;            // slabs per plan window
+  static_assert(NT % 32 == 0 && NB <= 1024 && KG <= 8 && NT % TJ == 0 && TI % NTY == 0 &&
+                    TI <= NT && TJ <= NT,
+                "tile and groups");
+};
+
+template <bool ADJ>
+struct Group {  // one warp group's pipeline
+  uint16_t stage[NS][STAGE_ELEMS];                   // bf16 boxes, a ring
+  alignas(16) float t[(ADJ ? 2 : 1) * TROWS * TJ];   // T, then Tp (K4); row STAGE_ROWS is 0
+  float4 row[TI];                                    // hw0, hw1, T offsets of taps 0 and 1
+  float2 rowp[TI];                                   // hw0', hw1' (K4)
+};
+
+template <bool ADJ>
+struct Smem {
+  Group<ADJ> g[Cfg<ADJ>::KG];
+  int4 box[Cfg<ADJ>::PLAN];                          // (wlo, whi, la, npad)
+  float wk[Cfg<ADJ>::PLAN];
+  int rpc[Cfg<ADJ>::PLAN];                           // rows per chunk
+};
+
+template <bool ADJ>
+struct Acc;
+template <>
+struct Acc<false> {
+  float a[Cfg<false>::RPT];
+};
+template <>
+struct Acc<true> {
+  double a[Cfg<true>::RPT], b[Cfg<true>::RPT];  // gw and gl terms, before the Ibar factor
+};
+
+// The epilogues reuse the whole of Smem: K1 for the groups' sums, K4 for the
+// groups' sums and the tile's reduction.
+static_assert((Cfg<false>::KG - 1) * Cfg<false>::RPT * Cfg<false>::NT * 4 <= sizeof(Smem<false>),
+              "K1 exchange");
+static_assert(((Cfg<true>::KG - 1) * 2 * Cfg<true>::RPT * Cfg<true>::NT + TI * (TJ + 1)) * 8 <=
+                  sizeof(Smem<true>),
+              "K4 exchange");
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+// wait until at most NS - 2 groups are pending: the oldest chunk has landed
+__device__ __forceinline__ void cp_async_wait_ring() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(NS - 2) : "memory");
+}
+
+// the barrier of warp group GI of N threads: named barrier GI + 1 (barrier 0
+// is __syncthreads), or __syncwarp for a group of one warp
+template <int GI, int N>
+__device__ __forceinline__ void group_sync() {
+  if constexpr (N == 32)
+    __syncwarp();
+  else
+    asm volatile("bar.sync %0, %1;\n" ::"n"(GI + 1), "n"(N) : "memory");
+}
+
+// w_k, the box of slab k and its rows per chunk for a tile whose corner
+// positions are (ua, ub) and (va, vb); whi = -1 marks a skipped slab.
+__device__ __forceinline__ void plan_slab(const SlabParams& p, int k, float ua, float ub, float va,
+                                          float vb, int Wd, int L, int4* box, float* wkp,
+                                          int* rpc) {
+  const float c = __fsub_rn((float)k, p.s0);
+  const float wk = fminf(fmaxf(affine_rn(0.5f, p.sgn, c), 0.0f), 1.0f);
+  const float wa = affine_rn(p.s1, c, ua), wb = affine_rn(p.s1, c, ub);
+  const float la = affine_rn(p.s2, c, va), lb = affine_rn(p.s2, c, vb);
+  const float wmin = floorf(fminf(wa, wb)), wmax = floorf(fmaxf(wa, wb));
+  const float lmin = floorf(fminf(la, lb)), lmax = floorf(fmaxf(la, lb));
+  int4 bx = make_int4(0, -1, 0, 2);
+  if (wk != 0.0f && wmax >= -1.0f && wmin < (float)Wd && lmax >= -1.0f && lmin < (float)L) {
+    bx.x = (int)fmaxf(wmin, 0.0f);
+    bx.y = (int)fminf(wmax + 1.0f, (float)(Wd - 1));
+    bx.z = (int)fmaxf(lmin, 0.0f) & ~1;
+    const int lhi = (int)fminf(lmax + 1.0f, (float)(L - 1));
+    bx.w = (lhi - bx.z + 2) & ~1;
   }
-  out[((size_t)b * Iu + i) * Iv + j] = acc;
+  *box = bx;
+  *wkp = wk;
+  *rpc = bx.w > STAGE_ELEMS ? STAGE_ROWS : min(STAGE_ROWS, STAGE_ELEMS / bx.w);
+}
+
+// a box too wide to stage: the lane pass reads it from global memory
+__device__ __forceinline__ bool unstaged(const int4& bx) { return bx.w > STAGE_ELEMS; }
+
+// A position in a group's sequence of chunks in the window: slab s
+// (window-relative), first row wc. s == n past the end.
+struct Cursor {
+  int s, wc;
+};
+
+// the next slab at or after s that warp group GI marches (s % KG == GI) and
+// that is not skipped
+template <int KG, int GI>
+__device__ __forceinline__ int next_slab(const int4* box, int s, int n) {
+  s += (GI - s % KG + KG) % KG;
+  while (s < n && box[s].y < 0) s += KG;
+  return min(s, n);
+}
+
+template <int KG, int GI>
+__device__ __forceinline__ Cursor first_chunk(const int4* box, int n) {
+  const int s = next_slab<KG, GI>(box, 0, n);
+  return {s, s < n ? box[s].x : 0};
+}
+
+template <int KG, int GI>
+__device__ __forceinline__ Cursor next_chunk(const int4* box, const int* rpc, Cursor c, int n) {
+  const int wc = c.wc + rpc[c.s];
+  if (wc <= box[c.s].y) return {c.s, wc};
+  const int s = next_slab<KG, GI>(box, c.s + 1, n);
+  return {s, s < n ? box[s].x : 0};
+}
+
+// The copy of stage_chunk for an odd L or a misaligned volume: plain loads,
+// lanes past L read 0. Out of line: it is rare, and inlined at every call
+// site it would crowd the march out of the instruction cache.
+__device__ __noinline__ void stage_rows_plain(uint16_t* dst, const uint16_t* __restrict__ src, int nr,
+                                              int npad, int la, int L, int warp, int lane, int nw) {
+  for (int r = warp; r < nr; r += nw)
+    for (int q = lane; q < npad; q += 32)
+      dst[r * npad + q] = (la + q < L) ? src[(size_t)r * L + q] : (uint16_t)0;
+}
+
+// Copy rows [c.wc, c.wc + nr) x lanes [la, la + npad) of slab kw + c.s into
+// dst: one warp of the group per row, one 4-byte word (or bf16) per lane.
+template <bool ADJ>
+__device__ __forceinline__ void stage_chunk(uint16_t* dst, const Smem<ADJ>& sm,
+                                            const uint16_t* __restrict__ vol, int Wd, int L,
+                                            int kw, Cursor c, bool pairs, int gt) {
+  constexpr int NW = Cfg<ADJ>::NT / 32;
+  const int4 bx = sm.box[c.s];
+  if (unstaged(bx)) return;
+  const int nr = min(sm.rpc[c.s], bx.y - c.wc + 1);
+  const int la = bx.z, npad = bx.w;
+  const uint16_t* src = vol + ((size_t)(kw + c.s) * Wd + c.wc) * L + la;
+  const int warp = gt >> 5, lane = gt & 31;
+  if (pairs) {
+    for (int r = warp; r < nr; r += NW)
+      for (int q = 2 * lane; q < npad; q += 64) cp_async4(dst + r * npad + q, src + (size_t)r * L + q);
+  } else {
+    stage_rows_plain(dst, src, nr, npad, la, L, warp, lane, NW);
+  }
+}
+
+// The march of warp group GI over its slabs of [k0, k1) (see the note above).
+template <bool ADJ, int GI>
+__device__ __forceinline__ void march(Smem<ADJ>& sm, Acc<ADJ>& acc, const uint16_t* __restrict__ vol,
+                                      int Wd, int L, const SlabParams& p, int Iu, int Iv, float eps,
+                                      int k0, int k1, bool pairs) {
+  using C = Cfg<ADJ>;
+  constexpr int NT = C::NT, KG = C::KG, NTY = C::NTY;
+  constexpr int TP = TROWS * TJ;  // Tp's offset in G.t
+  Group<ADJ>& G = sm.g[GI];
+  const int tid = threadIdx.x, gt = tid - GI * NT, tx = gt % TJ, ty = gt / TJ;
+  const int i0 = blockIdx.y * TI, j0 = blockIdx.x * TJ;
+  const Hat hat = make_hat(eps);
+  const float ua = affine_rn(p.u0, p.du, (float)i0);
+  const float ub = affine_rn(p.u0, p.du, (float)(min(i0 + TI, Iu) - 1));
+  const float va = affine_rn(p.v0, p.dv, (float)j0);
+  const float vb = affine_rn(p.v0, p.dv, (float)(min(j0 + TJ, Iv) - 1));
+  const int j = j0 + tx, ir = i0 + gt;  // this thread's column; its row when gt < TI
+  const float v = affine_rn(p.v0, p.dv, (float)j);
+  const float ur = affine_rn(p.u0, p.du, (float)ir);
+  if (gt < TJ) {  // the zero rows the row pass reads for taps outside a chunk
+    G.t[STAGE_ROWS * TJ + gt] = 0.0f;
+    if (ADJ) G.t[TP + STAGE_ROWS * TJ + gt] = 0.0f;
+  }
+  for (int kw = k0; kw < k1; kw += C::PLAN) {
+    const int n = min(C::PLAN, k1 - kw);
+    __syncthreads();  // every group is done with the previous window's plan
+    if (tid < n) plan_slab(p, kw + tid, ua, ub, va, vb, Wd, L, &sm.box[tid], &sm.wk[tid], &sm.rpc[tid]);
+    __syncthreads();
+    // ring of NS staged chunks: the loads run NS - 1 chunks ahead of the compute
+    Cursor ld = first_chunk<KG, GI>(sm.box, n), cu = ld;
+    for (int r = 0; r < NS - 1; ++r) {
+      if (ld.s < n) {
+        stage_chunk<ADJ>(G.stage[r], sm, vol, Wd, L, kw, ld, pairs, gt);
+        ld = next_chunk<KG, GI>(sm.box, sm.rpc, ld, n);
+      }
+      cp_async_commit();
+    }
+    int slot = 0, cur = -1, l0 = 0, w0 = 0;
+    bool lok = false, wok = false;
+    float hl0 = 0.0f, hl1 = 0.0f, hp0 = 0.0f, hp1 = 0.0f;  // this thread's column
+    float hw0 = 0.0f, hw1 = 0.0f, hwp0 = 0.0f, hwp1 = 0.0f;  // its row (gt < TI)
+    while (cu.s < n) {
+      const int s = cu.s, wc = cu.wc;
+      const int4 bx = sm.box[s];
+      const float wk = sm.wk[s];
+      const int nr = min(sm.rpc[s], bx.y - wc + 1);
+      cp_async_wait_ring();
+      group_sync<GI, NT>();  // chunk cu has landed; the last lane and row passes are done
+      if (ld.s < n) {        // refill the slot the last lane pass read
+        stage_chunk<ADJ>(G.stage[(slot + NS - 1) % NS], sm, vol, Wd, L, kw, ld, pairs, gt);
+        ld = next_chunk<KG, GI>(sm.box, sm.rpc, ld, n);
+      }
+      cp_async_commit();
+      if (s != cur) {  // a new slab: the column's hats, and the row's
+        cur = s;
+        const float c = __fsub_rn((float)(kw + s), p.s0);
+        const float lpos = affine_rn(p.s2, c, v);
+        const float lf = floorf(lpos);
+        lok = j < Iv && lf >= -1.0f && lf < (float)L;
+        l0 = (int)lf;
+        const float fl = lpos - lf;
+        hl0 = lok ? hat_eps(hat, fl) : 0.0f;
+        hl1 = lok ? hat_eps(hat, fl - 1.0f) : 0.0f;
+        if (ADJ) {
+          hp0 = lok ? hat_prime(hat, fl) : 0.0f;
+          hp1 = lok ? hat_prime(hat, fl - 1.0f) : 0.0f;
+        }
+        if (gt < TI) {
+          const float wpos = affine_rn(p.s1, c, ur);
+          const float wf = floorf(wpos);
+          wok = ir < Iu && wf >= -1.0f && wf < (float)Wd;
+          w0 = (int)wf;
+          const float fw = wpos - wf;
+          hw0 = hat_eps(hat, fw);
+          hw1 = hat_eps(hat, fw - 1.0f);
+          if (ADJ) {
+            hwp0 = hat_prime(hat, fw);
+            hwp1 = hat_prime(hat, fw - 1.0f);
+          }
+        }
+      }
+      if (gt < TI) {  // this chunk's T rows of the row's two taps, or the zero row
+        const int r0 = w0 - wc;
+        const bool in0 = wok && r0 >= 0 && r0 < nr, in1 = wok && r0 + 1 >= 0 && r0 + 1 < nr;
+        G.row[gt] = make_float4(hw0, hw1, __int_as_float((in0 ? r0 : STAGE_ROWS) * TJ),
+                                __int_as_float((in1 ? r0 + 1 : STAGE_ROWS) * TJ));
+        if (ADJ) G.rowp[gt] = make_float2(hwp0, hwp1);
+      }
+      // lane pass: T[r, j] (and Tp) for the chunk's rows, whose lane la is
+      // at S; lanes -1 and L read 0
+      const bool ok0 = lok && l0 >= 0, ok1 = lok && l0 + 1 < L;
+      const auto lane_pass = [&](const uint16_t* S, int stride) {
+        for (int r = ty; r < nr; r += NTY) {
+          const uint16_t* row = S + r * stride;
+          const float a = ok0 ? bf16_bits(row[l0]) : 0.0f;
+          const float b = ok1 ? bf16_bits(row[l0 + 1]) : 0.0f;
+          G.t[r * TJ + tx] = __fmaf_rn(hl1, b, __fmul_rn(hl0, a));
+          if (ADJ) G.t[TP + r * TJ + tx] = hp0 * a + hp1 * b;
+        }
+      };
+      if (unstaged(bx))
+        lane_pass(vol + ((size_t)(kw + s) * Wd + wc) * L, L);
+      else
+        lane_pass(G.stage[slot] - bx.z, bx.w);
+      group_sync<GI, NT>();
+      // row pass
+#pragma unroll
+      for (int q = 0; q < C::RPT; ++q) {
+        const int il = ty + NTY * q;
+        const float4 h = G.row[il];
+        const int o0 = __float_as_int(h.z) + tx, o1 = __float_as_int(h.w) + tx;
+        const float t0 = G.t[o0], t1 = G.t[o1];
+        if constexpr (ADJ) {
+          const float2 hp = G.rowp[il];
+          acc.a[q] += (double)(wk * (hp.x * t0 + hp.y * t1));
+          acc.b[q] += (double)(wk * (h.x * G.t[TP + o0] + h.y * G.t[TP + o1]));
+        } else {
+          acc.a[q] = __fmaf_rn(wk, __fmaf_rn(h.y, t1, __fmul_rn(h.x, t0)), acc.a[q]);
+        }
+      }
+      cu = next_chunk<KG, GI>(sm.box, sm.rpc, cu, n);
+      slot = (slot + 1) % NS;
+    }
+  }
+}
+
+// Run the march of this thread's warp group, each group its own
+// specialisation (its buffers and barrier at fixed addresses and ids).
+template <bool ADJ, int GI = 0>
+__device__ __forceinline__ void march_group(int g, Smem<ADJ>& sm, Acc<ADJ>& acc,
+                                            const uint16_t* __restrict__ vol, int Wd, int L,
+                                            const SlabParams& p, int Iu, int Iv, float eps, int k0,
+                                            int k1, bool pairs) {
+  if constexpr (GI < Cfg<ADJ>::KG) {
+    if (g == GI)
+      march<ADJ, GI>(sm, acc, vol, Wd, L, p, Iu, Iv, eps, k0, k1, pairs);
+    else
+      march_group<ADJ, GI + 1>(g, sm, acc, vol, Wd, L, p, Iu, Iv, eps, k0, k1, pairs);
+  }
+}
+
+// K1: I[b, i, j] = sum_k w_k sum_{w,l} hat(wpos - w) hat(lpos - l) S_k[w, l]
+// The warp groups' sums of one output are added in group order.
+__global__ void __launch_bounds__(Cfg<false>::NB, Cfg<false>::MINB)
+    sw_accumulate_tiled_kernel(const uint16_t* __restrict__ vol, int Wd, int L,
+                               const float* __restrict__ params, float* __restrict__ out, int Iu,
+                               int Iv, float eps, int k0, int k1, bool pairs) {
+  using C = Cfg<false>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Smem<false>& sm = *reinterpret_cast<Smem<false>*>(smem_raw);
+  const int b = blockIdx.z;
+  const int g = threadIdx.x / C::NT, gt = threadIdx.x % C::NT, tx = gt % TJ, ty = gt / TJ;
+  const SlabParams p = load_params(params, b);
+  Acc<false> acc;
+#pragma unroll
+  for (int q = 0; q < C::RPT; ++q) acc.a[q] = 0.0f;
+  march_group<false>(g, sm, acc, vol, Wd, L, p, Iu, Iv, eps, k0, k1, pairs);
+  if (C::KG > 1) {
+    float* xch = reinterpret_cast<float*>(smem_raw);  // (KG - 1) x RPT x NT
+    __syncthreads();  // every group is done with its buffers
+    if (g > 0) {
+#pragma unroll
+      for (int q = 0; q < C::RPT; ++q) xch[((g - 1) * C::RPT + q) * C::NT + gt] = acc.a[q];
+    }
+    __syncthreads();
+    if (g > 0) return;
+    for (int h = 1; h < C::KG; ++h) {
+#pragma unroll
+      for (int q = 0; q < C::RPT; ++q) acc.a[q] += xch[((h - 1) * C::RPT + q) * C::NT + gt];
+    }
+  }
+  const int j = blockIdx.x * TJ + tx;
+#pragma unroll
+  for (int q = 0; q < C::RPT; ++q) {
+    const int i = blockIdx.y * TI + ty + C::NTY * q;
+    if (i < Iu && j < Iv) out[((size_t)b * Iu + i) * Iv + j] = acc.a[q];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K4: adjoint of K1 with respect to the source position.
+//   gw[b, i] = sum_k w_k sum_j Ibar[i, j] sum_{w,l} hat'(wpos - w) hat(lpos - l) S_k[w, l]
+//   gl[b, j] = sum_k w_k sum_i Ibar[i, j] sum_{w,l} hat(wpos - w) hat'(lpos - l) S_k[w, l]
+// The march above with hat' beside hat on both axes: the lane pass builds
+// T (hat) and Tp (hat'), the row pass A += w_k (hw0' T0 + hw1' T1) and
+// B += w_k (hw0 Tp0 + hw1 Tp1). The terms are signed and cancel heavily, so
+// each slab's term is added into double sums. A tile whose Ibar is all zero
+// (outside the view) skips the march. At the end each block adds its groups'
+// sums in group order, multiplies by Ibar and reduces gw over its columns
+// and gl over its rows, in a fixed order, into one double partial per
+// block; sw_sum_partials_kernel sums the partials over the blocks. No
+// atomics: two calls give identical bits.
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(Cfg<true>::NB, Cfg<true>::MINB)
+    sw_adjoint_tiled_kernel(const uint16_t* __restrict__ vol, int Wd, int L,
+                            const float* __restrict__ params, const uint16_t* __restrict__ ibar,
+                            int Iu, int Iv, float eps, int k0, int k1, bool pairs,
+                            double* __restrict__ part_gw, double* __restrict__ part_gl) {
+  using C = Cfg<true>;
+  constexpr int NT = C::NT, KG = C::KG, RPT = C::RPT, NTY = C::NTY;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Smem<true>& sm = *reinterpret_cast<Smem<true>*>(smem_raw);
+  const int tid = threadIdx.x, g = tid / NT, gt = tid % NT, tx = gt % TJ, ty = gt / TJ;
+  const int b = blockIdx.z, i0 = blockIdx.y * TI, j = blockIdx.x * TJ + tx;
+  float ib[RPT];
+  bool any = false;
+#pragma unroll
+  for (int q = 0; q < RPT; ++q) {
+    const int i = i0 + ty + NTY * q;
+    ib[q] = (i < Iu && j < Iv) ? bf16_bits(ibar[((size_t)b * Iu + i) * Iv + j]) : 0.0f;
+    any = any || ib[q] != 0.0f;
+  }
+  Acc<true> acc;
+#pragma unroll
+  for (int q = 0; q < RPT; ++q) acc.a[q] = acc.b[q] = 0.0;
+  if (__syncthreads_or(any)) {
+    const SlabParams p = load_params(params, b);
+    march_group<true>(g, sm, acc, vol, Wd, L, p, Iu, Iv, eps, k0, k1, pairs);
+  }
+  // the groups' sums, added in group order, times Ibar; then the tile's
+  // reduction, in the shared memory the pipelines no longer need
+  double* xch = reinterpret_cast<double*>(smem_raw);  // (KG - 1) x 2 RPT x NT
+  double* red = xch + (KG - 1) * 2 * RPT * NT;        // TI x (TJ + 1)
+  __syncthreads();
+  if (g > 0) {
+#pragma unroll
+    for (int q = 0; q < RPT; ++q) {
+      xch[((g - 1) * 2 * RPT + q) * NT + gt] = acc.a[q];
+      xch[((g - 1) * 2 * RPT + RPT + q) * NT + gt] = acc.b[q];
+    }
+  }
+  __syncthreads();
+  double gl = 0.0;
+  if (g == 0) {
+#pragma unroll
+    for (int q = 0; q < RPT; ++q) {
+      double a = acc.a[q], c = acc.b[q];
+      for (int h = 1; h < KG; ++h) {
+        a += xch[((h - 1) * 2 * RPT + q) * NT + gt];
+        c += xch[((h - 1) * 2 * RPT + RPT + q) * NT + gt];
+      }
+      red[(ty + NTY * q) * (TJ + 1) + tx] = a * (double)ib[q];
+      gl += c * (double)ib[q];
+    }
+  }
+  __syncthreads();
+  if (tid < TI && i0 + tid < Iu) {
+    double s = 0.0;
+    for (int t = 0; t < TJ; ++t) s += red[tid * (TJ + 1) + t];
+    part_gw[((size_t)b * Iu + i0 + tid) * gridDim.x + blockIdx.x] = s;
+  }
+  __syncthreads();
+  if (g == 0) red[ty * (TJ + 1) + tx] = gl;
+  __syncthreads();
+  const int jr = blockIdx.x * TJ + tid;
+  if (tid < TJ && jr < Iv) {
+    double s = 0.0;
+    for (int t = 0; t < NTY; ++t) s += red[t * (TJ + 1) + tid];
+    part_gl[((size_t)b * Iv + jr) * gridDim.y + blockIdx.y] = s;
+  }
+}
+
+// out[r] = sum_t part[r, t] for n rows of nt partials.
+__global__ void sw_sum_partials_kernel(const double* __restrict__ part, float* __restrict__ out,
+                                       int n, int nt) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= n) return;
+  double s = 0.0;
+  for (int t = 0; t < nt; ++t) s += part[(size_t)r * nt + t];
+  out[r] = (float)s;
 }
 
 // ---------------------------------------------------------------------------
@@ -192,103 +653,7 @@ __global__ void sw_warp_grads_kernel(const float* __restrict__ I, const float* _
   dout_dv[o] = dv;
 }
 
-// ---------------------------------------------------------------------------
-// K4: adjoint of K1 with respect to the source position.
-//   gw[b, i] = sum_k w_k sum_j Ibar[i, j] sum_{w,l} hat'(wpos - w) hat(lpos - l) S_k[w, l]
-//   gl[b, j] = sum_k w_k sum_i Ibar[i, j] sum_{w,l} hat(wpos - w) hat'(lpos - l) S_k[w, l]
-// One thread per (b, i, j) walks the same band as K1 and keeps both partial
-// sums in registers; a block then reduces gw over its j range and gl over its
-// i range in shared memory and writes one partial per block (no atomics, so
-// the result does not depend on block order). A second small kernel sums the
-// partials over the block axis. The terms are signed and cancel heavily, so
-// every sum past the 4-tap slab sample runs in double (one add per slab per
-// thread: cheap beside the gathers). Bound on the H100: operations (~16 f32
-// FLOP per sample, just above the volume's read time); as for K1, the
-// per-thread gather is the likely limit of this simple version.
-// ---------------------------------------------------------------------------
-constexpr int ADJ_BX = 32;
-constexpr int ADJ_BY = 8;
-
-__global__ void sw_adjoint_kernel(const __nv_bfloat16* __restrict__ vol, int Wd, int L,
-                                  const float* __restrict__ params,
-                                  const __nv_bfloat16* __restrict__ ibar, int Iu, int Iv,
-                                  float eps, int k0, int k1, double* __restrict__ part_gw,
-                                  double* __restrict__ part_gl) {
-  __shared__ double sh_w[ADJ_BY][ADJ_BX + 1];
-  __shared__ double sh_l[ADJ_BY][ADJ_BX + 1];
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int j = blockIdx.x * ADJ_BX + tx;
-  const int i = blockIdx.y * ADJ_BY + ty;
-  const int b = blockIdx.z;
-  double gw = 0.0, gl = 0.0;
-  if (i < Iu && j < Iv) {
-    const float ib = __bfloat162float(ibar[((size_t)b * Iu + i) * Iv + j]);
-    if (ib != 0.0f) {
-      const SlabParams p = load_params(params, b);
-      const float u = affine_rn(p.u0, p.du, (float)i);
-      const float v = affine_rn(p.v0, p.dv, (float)j);
-      for (int k = k0; k < k1; ++k) {
-        const float c = __fsub_rn((float)k, p.s0);
-        const float wk = fminf(fmaxf(affine_rn(0.5f, p.sgn, c), 0.0f), 1.0f);
-        if (wk == 0.0f) continue;
-        const float wpos = affine_rn(p.s1, c, u);
-        const float lpos = affine_rn(p.s2, c, v);
-        const float wf = floorf(wpos), lf = floorf(lpos);
-        if (wf < -1.0f || wf >= (float)Wd || lf < -1.0f || lf >= (float)L) continue;
-        const int w0 = (int)wf, l0 = (int)lf;
-        const float fw = wpos - wf, fl = lpos - lf;
-        const float hw[2] = {hat_eps(fw, eps), hat_eps(fw - 1.0f, eps)};
-        const float hwp[2] = {hat_prime(fw, eps), hat_prime(fw - 1.0f, eps)};
-        const float hl[2] = {hat_eps(fl, eps), hat_eps(fl - 1.0f, eps)};
-        const float hlp[2] = {hat_prime(fl, eps), hat_prime(fl - 1.0f, eps)};
-        const __nv_bfloat16* slab = vol + (size_t)k * Wd * L;
-        float sa = 0.0f, sb = 0.0f;
-#pragma unroll
-        for (int a = 0; a < 2; ++a) {
-          const int w = w0 + a;
-          if (w < 0 || w >= Wd) continue;
-          const __nv_bfloat16* row = slab + (size_t)w * L;
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int l = l0 + e;
-            if (l < 0 || l >= L) continue;
-            const float s = __bfloat162float(row[l]);
-            sa += hwp[a] * hl[e] * s;
-            sb += hw[a] * hlp[e] * s;
-          }
-        }
-        gw += (double)(wk * sa);
-        gl += (double)(wk * sb);
-      }
-      gw *= (double)ib;
-      gl *= (double)ib;
-    }
-  }
-  sh_w[ty][tx] = gw;
-  sh_l[ty][tx] = gl;
-  __syncthreads();
-  const int nbx = gridDim.x, nby = gridDim.y;
-  if (tx == 0 && i < Iu) {
-    double s = 0.0;
-    for (int t = 0; t < ADJ_BX; ++t) s += sh_w[ty][t];
-    part_gw[((size_t)b * Iu + i) * nbx + blockIdx.x] = s;
-  }
-  if (ty == 0 && j < Iv) {
-    double s = 0.0;
-    for (int t = 0; t < ADJ_BY; ++t) s += sh_l[t][tx];
-    part_gl[((size_t)b * Iv + j) * nby + blockIdx.y] = s;
-  }
-}
-
-// out[r] = sum_t part[r, t] for n rows of nt partials.
-__global__ void sw_sum_partials_kernel(const double* __restrict__ part, float* __restrict__ out,
-                                       int n, int nt) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= n) return;
-  double s = 0.0;
-  for (int t = 0; t < nt; ++t) s += part[(size_t)r * nt + t];
-  out[r] = (float)s;
-}
+bool pairs_ok(const void* vol, int L) { return L % 2 == 0 && (uintptr_t)vol % 4 == 0; }
 
 }  // namespace
 
@@ -296,10 +661,13 @@ extern "C" {
 
 int sw_accumulate(const void* vol, int Wd, int L, const void* params, void* out, int B, int Iu,
                   int Iv, float eps, int k0, int k1, void* stream) {
-  dim3 block(32, 8);
-  dim3 grid((Iv + 31) / 32, (Iu + 7) / 8, B);
-  sw_accumulate_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)vol, Wd, L, (const float*)params, (float*)out, Iu, Iv, eps, k0, k1);
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      sw_accumulate_tiled_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sizeof(Smem<false>));
+  if (attr != cudaSuccess) return (int)attr;
+  dim3 grid((Iv + TJ - 1) / TJ, (Iu + TI - 1) / TI, B);
+  sw_accumulate_tiled_kernel<<<grid, Cfg<false>::NB, sizeof(Smem<false>), (cudaStream_t)stream>>>(
+      (const uint16_t*)vol, Wd, L, (const float*)params, (float*)out, Iu, Iv, eps, k0, k1,
+      pairs_ok(vol, L));
   return (int)cudaGetLastError();
 }
 
@@ -323,22 +691,25 @@ int sw_warp_grads(const void* I, const void* uc, const void* vc, const void* ws,
   return (int)cudaGetLastError();
 }
 
-// Partials scratch (float64): part_gw (B, Iu, ceil(Iv/32)), part_gl (B, Iv, ceil(Iu/8)).
+// Partials scratch (float64): part_gw (B, Iu, ceil(Iv/TJ)), part_gl (B, Iv, ceil(Iu/TI)).
 int sw_adjoint_partials_shape(int Iu, int Iv, int* nbx, int* nby) {
-  *nbx = (Iv + ADJ_BX - 1) / ADJ_BX;
-  *nby = (Iu + ADJ_BY - 1) / ADJ_BY;
+  *nbx = (Iv + TJ - 1) / TJ;
+  *nby = (Iu + TI - 1) / TI;
   return 0;
 }
 
 int sw_accumulate_adjoint(const void* vol, int Wd, int L, const void* params, const void* ibar,
                           void* part_gw, void* part_gl, void* gw, void* gl, int B, int Iu, int Iv,
                           float eps, int k0, int k1, void* stream) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      sw_adjoint_tiled_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sizeof(Smem<true>));
+  if (attr != cudaSuccess) return (int)attr;
   cudaStream_t st = (cudaStream_t)stream;
-  dim3 block(ADJ_BX, ADJ_BY);
-  dim3 grid((Iv + ADJ_BX - 1) / ADJ_BX, (Iu + ADJ_BY - 1) / ADJ_BY, B);
-  sw_adjoint_kernel<<<grid, block, 0, st>>>((const __nv_bfloat16*)vol, Wd, L, (const float*)params,
-                                            (const __nv_bfloat16*)ibar, Iu, Iv, eps, k0, k1,
-                                            (double*)part_gw, (double*)part_gl);
+  dim3 grid((Iv + TJ - 1) / TJ, (Iu + TI - 1) / TI, B);
+  sw_adjoint_tiled_kernel<<<grid, Cfg<true>::NB, sizeof(Smem<true>), st>>>((const uint16_t*)vol, Wd, L, (const float*)params,
+                                               (const uint16_t*)ibar, Iu, Iv, eps, k0, k1,
+                                               pairs_ok(vol, L), (double*)part_gw,
+                                               (double*)part_gl);
   int err = (int)cudaGetLastError();
   if (err) return err;
   const int nw = B * Iu, nl = B * Iv;

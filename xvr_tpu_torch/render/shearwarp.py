@@ -176,6 +176,15 @@ def _accumulate_adjoint(vol, s_p, sgn, u0, du, v0, dv, Ibar, *, Iu: int, Iv: int
     """Plain version of K4: d<Ibar, accumulate(...)>/d s_p with four dense
     products per slab -> g_s (B, 3). ``Ibar`` is read as bf16, as the kernel
     and the JAX package read it; ``bf16`` as in :func:`_accumulate`."""
+    gw, gl = _adjoint_rows(vol, s_p, sgn, u0, du, v0, dv, Ibar, Iu=Iu, Iv=Iv, eps=eps, k0=k0,
+                           k1=k1, bf16=bf16)
+    return _contract_source(gw, gl, u0, du, v0, dv)
+
+
+def _adjoint_rows(vol, s_p, sgn, u0, du, v0, dv, Ibar, *, Iu: int, Iv: int, eps: float = 1.0,
+                  k0: int = 0, k1: int | None = None, bf16: bool = True):
+    """The per-row cotangent sums of :func:`_accumulate_adjoint` before the
+    contraction: gw (B, Iu) and gl (B, Iv), what the kernel returns."""
     M, Wd, L = vol.shape
     k1 = M if k1 is None else k1
     dev, f = vol.device, s_p.dtype
@@ -201,7 +210,7 @@ def _accumulate_adjoint(vol, s_p, sgn, u0, du, v0, dv, Ibar, *, Iu: int, Iv: int
         gw = gw + wk[:, None] * (ga * hp).sum(-1)
         gb = ib.transpose(1, 2) @ rnd(h @ S)  # (B, Iv, L)
         gl = gl + wk[:, None] * (gb * blp).sum(-1)
-    return _contract_source(gw, gl, u0, du, v0, dv)
+    return gw, gl
 
 
 def accumulate_adjoint(vol, s_p, sgn, u0, du, v0, dv, Ibar, *, Iu: int, Iv: int,
