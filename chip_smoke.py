@@ -17,16 +17,18 @@ Phases (each prints one or more lines; any failure exits non-zero):
 
 1. device    card name and power limit (nvidia-smi)
 2. build     nvcc seconds and the -Xptxas -v report of all eight kernels
-3. kernels   K1-K8 against their plain versions: max error and tolerance,
-             kernel / plain / library times (CUDA events) and the bound;
-             K1 and K4 also on steep and edge geometry beyond the path's
-             inputs, and eleven calls of each bit-identical; K6 also against a
-             finite difference of K5; then each kernel's device time from
-             torch.profiler at both shapes, and that of grid_sample, K2/K3's
-             library yardstick
+3. kernels   K1-K8 against their plain versions at each shape the
+             registration renders (B=16 at 60^2, B=4 at 60^2, 120^2, 239^2):
+             max error and tolerance, kernel / plain / library times (CUDA
+             events) and the bound; K1, K4, K5 and K6 also on steep and edge
+             geometry beyond the path's inputs, and eleven calls of each
+             bit-identical; K6 also against a finite difference of K5; then
+             each kernel's device time from torch.profiler at every shape,
+             and that of grid_sample, K2/K3's library yardstick
 4. slices    GT render; the shear-warp and slab registrations, each with the
              launch counts of its own run and its mTRE; the label and Siddon
-             renders, each with its launch counts
+             renders, each with its launch counts; each kernel's device time
+             above its bound per registration, stage by stage
 
 The line before the last is one JSON object with a record per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -72,9 +74,10 @@ DEVICE_KERNELS = {
     "slab_siddon": ("slab_siddon_kernel",),
 }
 # f32 operations per evaluated (ray, plane) pair, counted from slab.cu:
-# arithmetic, min/max, abs, floor and rint; compares, selects, conversions
-# and loads not counted
-SLAB_OPS = {"slab_forward": 37, "slab_backward": 121, "slab_channels": 40, "slab_siddon": 48}
+# arithmetic, min/max, abs, floor and rint, a fused multiply-add as 2;
+# compares, selects, conversions and loads not counted. K5 and K6 count their
+# lean plane, which nearly every pair takes
+SLAB_OPS = {"slab_forward": 21, "slab_backward": 53, "slab_channels": 40, "slab_siddon": 48}
 
 
 def log(*a):
@@ -220,6 +223,31 @@ def fiducial_mtre(pose_matrix, gt_matrix, fids) -> float:
     return float(np.linalg.norm(a - b, axis=-1).mean())
 
 
+def bench_projector(hu, aff, dev="cuda"):
+    """The kernels' scene: the CT with its labelmap (1 = bone above 600 HU,
+    2 = the plate above 1300 HU), the registration's 1336^2 crop projector,
+    and 16 and 4 poses about the ground truth (+-3 degrees, +-10 mm, seed 3).
+    -> (volume, projector, pose16, pose4)."""
+    import numpy as np
+    import torch
+    from xvr_tpu_torch.geometry import convert
+    from xvr_tpu_torch.render import Projector, Volume
+
+    mask = np.where(hu > 1300.0, 2, np.where(hu > 600.0, 1, 0)).astype(np.int32)
+    vol = Volume(data=torch.as_tensor(hu, device=dev), affine=torch.as_tensor(aff, device=dev),
+                 mask=torch.as_tensor(mask, device=dev))
+    proj = Projector.from_volume(vol, sdd=1020.0, height=1336, delx=0.194)
+    rng = np.random.default_rng(3)
+
+    def poses(n):
+        rot = np.deg2rad([182.0, -4.0, 3.0]) + np.deg2rad(rng.uniform(-3, 3, (n, 3)))
+        xyz = np.array([6.0, 740.0, -10.0]) + rng.uniform(-10, 10, (n, 3))
+        return convert(torch.tensor(rot, dtype=torch.float32, device=dev),
+                       torch.tensor(xyz, dtype=torch.float32, device=dev), "euler_angles", "ZXY")
+
+    return vol, proj, poses(16), poses(4)
+
+
 # ---------------------------------------------------------------------------
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -277,7 +305,7 @@ def check(name, got, ref, label, atol, rtol=0.0):
     return err
 
 
-REPEATS = 10  # calls of K1 and K4 held bit for bit against their first
+REPEATS = 10  # calls of K1, K4, K5 and K6 held bit for bit against their first
 
 
 def same_bits(name, first, call, label):
@@ -354,8 +382,20 @@ def phase_edge_kernels(bench_vol, seed=6):
     return errs
 
 
+def stage_cases(projector, pose16, pose4):
+    """(label, poses, detector scale) of each shape the registration renders:
+    the coarse sweep's 16 poses at the coarse scale, then 4 poses at the
+    coarse, middle and fine scales of the passes; coarse first, fine last."""
+    from xvr_tpu_torch.registrar.base import _parse_scales
+
+    s_coarse, s_mid, s_fine = _parse_scales("24,12,6", 100, projector.detector.height)
+    return [("coarse B=16", pose16, s_coarse), ("coarse B=4", pose4, s_coarse),
+            ("mid B=4", pose4, s_mid), ("fine B=4", pose4, s_fine)]
+
+
 def phase_kernels(projector, pose16, pose4, time_ms=cuda_time_ms):
-    """K1-K4 against their plain versions at the path's shapes.
+    """K1-K4 against their plain versions at the path's shapes (those of
+    :func:`stage_cases`).
 
     The reference is the plain version with ``bf16=False``: the kernels' own
     arithmetic (band sums from the bf16 volume). For K1, K2 and K3 it runs in
@@ -369,15 +409,13 @@ def phase_kernels(projector, pose16, pose4, time_ms=cuda_time_ms):
     package's bf16 recipe, which the CPU path runs."""
     import torch
     import torch.nn.functional as F
-    from xvr_tpu_torch.registrar.base import _parse_scales
     from xvr_tpu_torch.render import _cuda
     from xvr_tpu_torch.render import shearwarp as sw
 
     vol = projector.prepare_for_shearwarp()
     M, Wd, L = vol.shape
     records, calls = {}, []
-    s_coarse, _, s_fine = _parse_scales("24,12,6", 100, projector.detector.height)
-    cases = [("coarse B=16", pose16, s_coarse), ("fine B=4", pose4, s_fine)]
+    cases = stage_cases(projector, pose16, pose4)
 
     def f64(*xs):
         return [x.double() for x in xs]
@@ -476,6 +514,7 @@ def phase_kernels(projector, pose16, pose4, time_ms=cuda_time_ms):
                     launches=0, max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
                     bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
                     library_ms=lib_ms, shape=f"B={B} grid={Iu}x{Iv} det={det[0]}x{det[1]} eps={eps}",
+                    B=B, det=det[0],
                 )
                 log(f"  time {name} [{rec['shape']}]: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                     f"library {lib_ms if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
@@ -509,9 +548,133 @@ def slab_pairs(vol_shape, fields) -> tuple[int, int]:
 FIELDS = ("s0", "s1", "s2", "d0", "d1", "d2", "ws")
 
 
+def slab_path_inputs(projector, pose16, pose4):
+    """The slab kernels' inputs at the registration's stage shapes
+    (:func:`stage_cases`), as one render of each stage's poses makes them
+    through ``projector`` (a ``with_pallas`` projector), with a random
+    cotangent for K6. -> [dict(tag, det, fields (7, B, R), g (B, R), gen: the
+    generator that made g)], coarse first, fine last."""
+    import torch
+    from xvr_tpu_torch.render import pallas as sp
+    from xvr_tpu_torch.render import shearwarp as sw
+
+    out = []
+    for label, pose, scale in stage_cases(projector, pose16, pose4):
+        proj = projector.rescale_detector(scale)
+        with torch.no_grad():
+            src, tgt = proj.rays(pose)
+            fields = sp._fields(*sw._decompose(proj.affine_inverse, src, tgt, proj.pallas_perm))
+        _, B, R = fields.shape
+        gen = torch.Generator(device=fields.device).manual_seed(2)
+        g = torch.randn((B, R), generator=gen, device=fields.device)
+        det = (proj.detector.height, proj.detector.width)
+        out.append(dict(tag=f"{label} det {det[0]}x{det[1]}", det=det, fields=fields, g=g, gen=gen))
+    return out
+
+
+def check_k5(k5, vol, fields, tag):
+    """K5 against the float64 plain version: 2e-5 max|ref| + 2e-4 |ref|."""
+    from xvr_tpu_torch.render import pallas as sp
+
+    r5 = sp._slab_forward(vol, fields.double())
+    return check("K5 slab_forward", k5.double(), r5, tag, 2e-5 * float(r5.abs().max()), 2e-4), r5
+
+
+def check_k6(k6, vol, fields, g, tag):
+    """K6 against the float32 plain version, field by field: 1e-4 max|ref| +
+    1e-3 |ref|."""
+    from xvr_tpu_torch.render import pallas as sp
+
+    r6 = sp._slab_backward(vol, fields, g)
+    return max(check(f"K6 slab_backward[{FIELDS[j]}]", k6[j], r6[j], tag,
+                     1e-4 * float(r6[j].abs().max()), 1e-3) for j in range(7))
+
+
+# K5/K6 geometry beyond the slab path's inputs: label -> (volume shape, B, R,
+# kind). The rays of every case start from a source 30 planes before the
+# volume with directions within ~30 degrees of the march axis, some of them
+# clipped by the box, and 5 padding rays (ws = 0) per image; R is no multiple
+# of a block's rays (32 to 256), so every grid has a ragged last block
+SLAB_EDGE_CASES = {
+    # |d0| of 2e-6 and 3e-6, and 5e-7 and 0 below the 1e-6 clamp: rays along
+    # the planes, half of them with |d1|, |d2| small enough to sample
+    "steep": ((24, 20, 28), 3, 300, "steep"),
+    # d1 = 0 or d2 = 0 exactly, a quarter of them on a whole window row
+    "parallel": ((24, 20, 28), 3, 300, "parallel"),
+    "source inside": ((24, 20, 28), 3, 300, "inside"),
+    # M = 19 (no multiple of the split), odd Wd and L
+    "odd sizes": ((19, 21, 27), 3, 1000, "oblique"),
+    "trainer batch": ((64, 40, 64), 116, 1000, "oblique"),  # the trainer's B = 116
+}
+
+
+def slab_edge_inputs(case, device="cuda", seed=7, B=None, R=None):
+    """A bf16 volume and (7, B, R) f32 fields for one of SLAB_EDGE_CASES,
+    from a fixed seed; ``B`` and ``R`` override the case's batch and rays."""
+    import numpy as np
+    import torch
+
+    (M, Wd, L), B0, R0, kind = SLAB_EDGE_CASES[case]
+    B, R = B or B0, R or R0
+    rng = np.random.default_rng(seed)
+    vol = torch.as_tensor(rng.uniform(0.0, 1.0, (M, Wd, L)), dtype=torch.float32,
+                          device=device).to(torch.bfloat16)
+    reach = M + 60.0
+    s = np.stack([np.full((B, R), -30.0), rng.uniform(-4, Wd + 3, (B, R)),
+                  rng.uniform(-4, L + 3, (B, R))])
+    d = np.stack([np.full((B, R), reach), rng.uniform(-0.5, 0.5, (B, R)) * reach,
+                  rng.uniform(-0.5, 0.5, (B, R)) * reach])
+    if kind == "steep":
+        s[0] = rng.uniform(-0.5, M - 0.5, (B, R))
+        d[0] = rng.choice([2e-6, -3e-6, 5e-7, -5e-7, 0.0], (B, R))
+        d[1:] = rng.uniform(-1.0, 1.0, (2, B, R)) * np.where(rng.random((B, R)) < 0.5, 1e-5, Wd)
+    elif kind == "parallel":
+        d[1, :, 0::2] = 0.0
+        d[2, :, 1::2] = 0.0
+        s[1, :, 0::4] = np.round(s[1, :, 0::4])
+    elif kind == "inside":
+        s = np.stack([rng.uniform(0, M - 1, (B, R)), rng.uniform(0, Wd - 1, (B, R)),
+                      rng.uniform(0, L - 1, (B, R))])
+    ws = rng.uniform(0.5, 2.0, (B, R))
+    ws[:, :5] = 0.0
+    fields = np.concatenate([s, d, ws[None]])
+    return vol, torch.as_tensor(fields, dtype=torch.float32, device=device).contiguous()
+
+
+def phase_edge_slab(seed=8):
+    """K5 and K6 on SLAB_EDGE_CASES against their plain versions with the
+    path's tolerances (see phase_slab_kernels), eleven calls bit-identical
+    each. -> max abs error per kernel."""
+    import torch
+    from xvr_tpu_torch.render import _cuda
+    from xvr_tpu_torch.render import pallas as sp
+
+    errs = {"slab_forward": 0.0, "slab_backward": 0.0}
+    for label in SLAB_EDGE_CASES:
+        vol, fields = slab_edge_inputs(label)
+        _, B, R = fields.shape
+        g = torch.randn((B, R), generator=torch.Generator(device="cuda").manual_seed(seed),
+                        device="cuda")
+        tag = (f"{label} vol {tuple(vol.shape)} B={B} R={R} "
+               f"split {_cuda.slab_plane_split(B, R)}")
+        k5 = sp.slab_forward(vol, fields)
+        e5, r5 = check_k5(k5, vol, fields, tag)
+        if not float(r5.abs().max()) > 0:
+            raise AssertionError(f"{tag}: the case renders nothing")
+        same_bits("K5 slab_forward", k5, partial(sp.slab_forward, vol, fields), tag)
+        k6 = sp.slab_backward(vol, fields, g)
+        e6 = check_k6(k6, vol, fields, g, tag)
+        same_bits("K6 slab_backward", k6, partial(sp.slab_backward, vol, fields, g), tag)
+        errs = {"slab_forward": max(errs["slab_forward"], e5),
+                "slab_backward": max(errs["slab_backward"], e6)}
+    _cuda.reset_launches()
+    return errs
+
+
 def phase_slab_kernels(projector, pose16, pose4, labels, chans=(1, 2), time_ms=cuda_time_ms):
     """K5-K8 against their plain versions at the slab path's shapes (the
-    coarse sweep's B=16 at 60^2 and the fine stage's B=4 at 239^2).
+    coarse sweep's B=16 at 60^2, then B=4 at 60^2, 120^2 and 239^2); K5 and
+    K6 also held bit for bit over eleven calls.
 
     References: K5 and K8 sum positive terms, so their plain versions run in
     float64. K6 sums signed terms with tent slopes that flip where a sample
@@ -528,37 +691,27 @@ def phase_slab_kernels(projector, pose16, pose4, labels, chans=(1, 2), time_ms=c
     -> (records per kernel, one per shape; one call per kernel and shape for
     the profiler)."""
     import torch
-    from xvr_tpu_torch.registrar.base import _parse_scales
     from xvr_tpu_torch.render import _cuda
     from xvr_tpu_torch.render import pallas as sp
-    from xvr_tpu_torch.render import shearwarp as sw
 
     vol, vol_shape = projector.pack_for_pallas()
     M, Wd, L = vol_shape
     lab = sp.pack_labels(labels, projector.pallas_perm)
     C = len(chans) + 1
     records, calls = {}, []
-    s_coarse, _, s_fine = _parse_scales("24,12,6", 100, projector.detector.height)
-    for label, pose, scale in (("coarse B=16", pose16, s_coarse), ("fine B=4", pose4, s_fine)):
-        proj = projector.rescale_detector(scale)
-        det = (proj.detector.height, proj.detector.width)
-        with torch.no_grad():
-            src, tgt = proj.rays(pose)
-            fields = sp._fields(*sw._decompose(proj.affine_inverse, src, tgt, proj.pallas_perm))
+    for x in slab_path_inputs(projector, pose16, pose4):
+        tag, det, fields, g, gen = x["tag"], x["det"], x["fields"], x["g"], x["gen"]
         _, B, R = fields.shape
-        tag = f"{label} det {det[0]}x{det[1]}"
-        gen = torch.Generator(device=fields.device).manual_seed(2)
-        g = torch.randn((B, R), generator=gen, device=fields.device)
         f64 = fields.double()
+        log(f"  K5/K6 {tag}: {_cuda.slab_plane_split(B, R)} warps share a ray's planes")
 
         k5 = sp.slab_forward(vol, fields)
-        r5 = sp._slab_forward(vol, f64)
-        e5 = check("K5 slab_forward", k5.double(), r5, tag, 2e-5 * float(r5.abs().max()), 2e-4)
+        e5, r5 = check_k5(k5, vol, fields, tag)
+        same_bits("K5 slab_forward", k5, partial(sp.slab_forward, vol, fields), tag)
 
         k6 = sp.slab_backward(vol, fields, g)
-        r6 = sp._slab_backward(vol, fields, g)
-        e6 = max(check(f"K6 slab_backward[{FIELDS[j]}]", k6[j], r6[j], tag,
-                       1e-4 * float(r6[j].abs().max()), 1e-3) for j in range(7))
+        e6 = check_k6(k6, vol, fields, g, tag)
+        same_bits("K6 slab_backward", k6, partial(sp.slab_backward, vol, fields, g), tag)
         # distance to float64 arithmetic throughout (positions included)
         r6_64 = sp._slab_backward(vol, f64, g.double())
         scale64 = r6_64.abs().amax(dim=(1, 2))[:, None, None]
@@ -625,6 +778,7 @@ def phase_slab_kernels(projector, pose16, pose4, labels, chans=(1, 2), time_ms=c
                 launches=0, max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
                 bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
                 library_ms=None, shape=f"B={B} det={det[0]}x{det[1]} vol={M}x{Wd}x{L}",
+                B=B, det=det[0],
             )
             log(f"  time {name} [{rec['shape']}]: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                 f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}: {nbytes / 1e6:.1f} MB, "
@@ -800,19 +954,26 @@ def label_and_siddon_renders(volume, gt_pose, gt_proj, gt_img, pose4, chans=(1, 
         return img.detach()
 
     img, l7 = counted(("slab_channels", "slab_backward"), label_render)
+    # the channels partition the render: their sum against the float64 K5 with
+    # K5's tolerance (K7 and K5 round differently since K5's redesign)
     with torch.no_grad():
         src, tgt = fine.rays(convert(rot, xyz, "euler_angles", "ZXY"))
         fields = sp._fields(*sw._decompose(fine.affine_inverse, src, tgt, fine.pallas_perm))
-        k5 = sp.slab_forward(fine.pack_for_pallas()[0], fields).reshape(img.shape[0], *img.shape[2:])
-    ch_sum = img.sum(dim=1)
-    diff = float((ch_sum - k5).abs().max())
+        packed = fine.pack_for_pallas()[0]
+        r5 = sp._slab_forward(packed, fields.double()).reshape(img.shape[0], *img.shape[2:])
+        k5 = sp.slab_forward(packed, fields).reshape(r5.shape)
+    ch_sum = img.sum(dim=1).double()
+    err = (ch_sum - r5).abs()
+    tol = 2e-5 * float(r5.abs().max()) + 2e-4 * r5.abs()
     per_ch = [float(img[:, c].sum() / img.sum()) for c in range(img.shape[1])]
     log(f"slices: label render {tuple(img.shape)} via {fine.renderer}: channel shares "
-        f"{[round(p, 4) for p in per_ch]}, |sum of channels - K5| max {diff:.3e} "
-        f"(<= 2e-5 * {float(k5.abs().max()):.3f}), launches {json.dumps(l7)}")
+        f"{[round(p, 4) for p in per_ch]}, |sum of channels - float64 K5| max "
+        f"{float(err.max()):.3e} (<= 2e-5 * {float(r5.abs().max()):.3f} + 2e-4 |ref|; K5 kernel "
+        f"{float((ch_sum - k5).abs().max()):.3e}), launches {json.dumps(l7)}")
     if not (torch.isfinite(img).all() and torch.isfinite(rot.grad).all()
-            and float(rot.grad.abs().sum()) > 0 and diff <= 2e-5 * float(k5.abs().max())):
+            and float(rot.grad.abs().sum()) > 0 and bool((err <= tol).all())):
         raise AssertionError("label render: non-finite output, zero gradient or channel sum off")
+    diff = float(err.max())
 
     sid_proj = gt_proj.replace(renderer="siddon_pallas")
     with torch.no_grad():
@@ -830,6 +991,30 @@ def label_and_siddon_renders(volume, gt_pose, gt_proj, gt_img, pose4, chans=(1, 
 
 
 SW_KERNELS = ("sw_accumulate", "sw_warp", "sw_warp_grads", "sw_accumulate_adjoint")
+SLAB_PATH = ("slab_forward", "slab_backward")
+
+
+def stage_gaps(records, sw_stats, slab_stats, launches):
+    """Device time above the bound per registration, in ms: for the kernels of
+    each registration, the sum over its stages of the stage's iterations (an
+    iteration launches each kernel of its path once) times (device time -
+    bound) at the stage's shape; for K7 and K8, their launches at the fine
+    shape. -> name -> (gap ms or None without device times, iterations)."""
+    out = {}
+    for name, recs in records.items():
+        stats = sw_stats if name in SW_KERNELS else slab_stats if name in SLAB_PATH else None
+        if stats is None:
+            rec = recs[-1]
+            runs = [(launches[name], rec)]
+        else:
+            by_shape = {(r["B"], r["det"]): r for r in recs}
+            runs = [(st["n_done"], by_shape[(st["K"], st["det"])]) for st in stats["stages"]]
+        if any(r.get("profiler_ms") is None for _, r in runs):
+            out[name] = (None, sum(n for n, _ in runs))
+            continue
+        out[name] = (sum(n * (r["profiler_ms"] - r["bound_ms"]) for n, r in runs),
+                     sum(n for n, _ in runs))
+    return out
 
 
 def main() -> int:
@@ -859,27 +1044,10 @@ def main() -> int:
             log(f"  {line.strip()}")
 
     # 3. kernels at the paths' shapes, on the bench scene
-    import numpy as np
-    from xvr_tpu_torch.geometry import convert
-    from xvr_tpu_torch.render import Projector, Volume
-
     t0 = time.perf_counter()
     hu, aff, fids = build_phantom(256)
     log(f"phantom: 256^3 built in {time.perf_counter() - t0:.1f} s")
-    # labelmap: 1 = bone above 600 HU, 2 = the plate above 1300 HU
-    mask = np.where(hu > 1300.0, 2, np.where(hu > 600.0, 1, 0)).astype(np.int32)
-    vol = Volume(data=torch.as_tensor(hu, device="cuda"), affine=torch.as_tensor(aff, device="cuda"),
-                 mask=torch.as_tensor(mask, device="cuda"))
-    proj = Projector.from_volume(vol, sdd=1020.0, height=1336, delx=0.194)
-    rng = np.random.default_rng(3)
-
-    def poses(n):
-        rot = np.deg2rad([182.0, -4.0, 3.0]) + np.deg2rad(rng.uniform(-3, 3, (n, 3)))
-        xyz = np.array([6.0, 740.0, -10.0]) + rng.uniform(-10, 10, (n, 3))
-        return convert(torch.tensor(rot, dtype=torch.float32, device="cuda"),
-                       torch.tensor(xyz, dtype=torch.float32, device="cuda"), "euler_angles", "ZXY")
-
-    pose16, pose4 = poses(16), poses(4)
+    vol, proj, pose16, pose4 = bench_projector(hu, aff)
     sw_proj = proj.with_shearwarp(pose16[:1])
     slab_proj = proj.with_pallas(pose16[:1])
     log(f"kernels: volume perm {sw_proj.pallas_perm} ({sw_proj.renderer}), "
@@ -888,6 +1056,7 @@ def main() -> int:
         raise AssertionError(f"with_pallas declined the bench poses: {slab_proj.renderer}")
     records, sw_calls = phase_kernels(sw_proj, pose16, pose4)
     edge_errs = phase_edge_kernels(sw_proj.prepare_for_shearwarp())
+    edge_errs.update(phase_edge_slab())
     slab_records, slab_calls = phase_slab_kernels(slab_proj, pose16, pose4, vol.mask)
     records.update(slab_records)
     # device time of every kernel at both shapes (coarse, fine)
@@ -911,13 +1080,18 @@ def main() -> int:
         workdir = Path(tmp)
         gt_pose, gt_proj, gt_img = write_scene(workdir, hu, aff)
         sw_launches, sw_stats = register(workdir, gt_pose, fids, "trilinear_fast", SW_KERNELS)
-        slab_launches, slab_stats = register(
-            workdir, gt_pose, fids, "trilinear_pallas", ("slab_forward", "slab_backward"),
-            no_shearwarp=True)
+        slab_launches, slab_stats = register(workdir, gt_pose, fids, "trilinear_pallas",
+                                             SLAB_PATH, no_shearwarp=True)
     render_launches, render_stats = label_and_siddon_renders(vol, gt_pose, gt_proj, gt_img, pose4)
     launches = {**{k: sw_launches[k] for k in sw_launches if k.startswith("sw_")},
                 "slab_forward": slab_launches["slab_forward"],
                 "slab_backward": slab_launches["slab_backward"], **render_launches}
+
+    # launches x (device - bound) per registration, stage by stage
+    gaps = stage_gaps(records, sw_stats, slab_stats, launches)
+    for name, (gap, n) in sorted(gaps.items(), key=lambda kv: -(kv[1][0] or 0.0)):
+        log(f"gap {name}: {'not measured' if gap is None else f'{gap:.1f} ms'} above the bound "
+            f"per registration over {n} iterations or launches ({launches[name]} launches)")
 
     # one record per kernel: the fine stage's shape, the coarse one beside it
     kernels = []
@@ -926,9 +1100,12 @@ def main() -> int:
         rec["launches"] = launches[name]
         rec["max_abs_err"] = max(r["max_abs_err"] for r in recs)
         rec["edge_max_abs_err"] = edge_errs.get(name)
+        rec["gap_ms_per_registration"] = gaps[name][0]
         rec["coarse"] = {k: recs[0].get(k) for k in ("shape", "ms", "profiler_ms", "bound_ms",
                                                      "plain_ms", "library_ms",
                                                      "library_profiler_ms")}
+        rec["stages"] = [{k: r.get(k) for k in ("shape", "ms", "profiler_ms", "bound_ms")}
+                         for r in recs]
         kernels.append(rec)
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print("slices " + json.dumps({"shearwarp": sw_stats, "slab": slab_stats, "renders": render_stats}),

@@ -1,12 +1,15 @@
 #!/usr/bin/env python3
-"""mTRE of the port's shear-warp registration over seeded inits, on one GPU.
+"""mTRE of the port's registration over seeded inits, on one GPU.
 
 Registers the bench scene of ``chip_smoke.py`` (the 256^3 phantom CT and the
 1436^2 shear-warp DRR of its ground-truth pose) with ``RegistrarFixed`` in
 the bench's configuration, from the bench's ~4 mm init and from ``--inits``
 more, drawn from a fixed seed: rotations uniform in +-0.8 degrees and
-translations in +-4 mm per axis about the ground truth. ``--k4`` chooses what
-computes the source adjoint (K4) in the backward pass of every render:
+translations in +-4 mm per axis about the ground truth. The registration
+renders through shear-warp (``trilinear_fast``, K1-K4), or with ``--slab``
+under XVR_NO_SHEARWARP=1 through the slab kernels (``trilinear_pallas``, K5
+and K6). ``--k4`` chooses what computes the source adjoint (K4) in the
+backward pass of every shear-warp render:
 
   kernel    the port's own kernel, ``sw_accumulate_adjoint``
   plain32   its plain PyTorch version on the card, in float32
@@ -20,7 +23,8 @@ whose kernels then render the scene and run the registration.
 Prints one line per registration and, last, one JSON object with every
 record; ``--out`` writes that object to a file as well.
 
-Usage: python3 scripts/chip_mtre_spread.py [--port DIR] [--k4 MODE] [--inits N] [--out FILE]
+Usage: python3 scripts/chip_mtre_spread.py [--slab] [--port DIR] [--k4 MODE] [--inits N]
+                                           [--out FILE]
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ from __future__ import annotations
 import argparse
 import importlib.util
 import json
+import os
 import sys
 import tempfile
 import time
@@ -67,7 +72,7 @@ def route_k4(mode: str) -> None:
     sw._cuda.accumulate_adjoint = load_module("k4_checkout_cuda", other).accumulate_adjoint
 
 
-def register(smoke, workdir: Path, gt_pose, fids, d_rot_deg, d_xyz) -> dict:
+def register(smoke, workdir: Path, gt_pose, fids, d_rot_deg, d_xyz, renderer: str) -> dict:
     import numpy as np
     import torch
     from xvr_tpu_torch.registrar import RegistrarFixed
@@ -88,20 +93,23 @@ def register(smoke, workdir: Path, gt_pose, fids, d_rot_deg, d_xyz) -> dict:
     out = reg.run(workdir / "xray.dcm")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    if reg.projector.renderer != "trilinear_fast":
-        raise AssertionError(f"registration ran {reg.projector.renderer}, not trilinear_fast")
+    if reg.projector.renderer != renderer:
+        raise AssertionError(f"registration ran {reg.projector.renderer}, not {renderer}")
+    kernels = "slab_" if renderer == "trilinear_pallas" else "sw_"
     gt = gt_pose.matrix[0].cpu().numpy()
     return dict(
         d_rot_deg=[float(x) for x in d_rot_deg], d_xyz=[float(x) for x in d_xyz], wall_s=wall,
         mtre_init_mm=smoke.fiducial_mtre(out[3].matrix.cpu().numpy(), gt, fids),
         mtre_final_mm=smoke.fiducial_mtre(out[4].matrix.cpu().numpy(), gt, fids),
-        launches={k: v for k, v in _cuda.LAUNCHES.items() if k.startswith("sw_")},
+        launches={k: v for k, v in _cuda.LAUNCHES.items() if k.startswith(kernels)},
     )
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--port", default=str(REPO), help="checkout to import xvr_tpu_torch from")
+    ap.add_argument("--slab", action="store_true",
+                    help="register through the slab kernels (XVR_NO_SHEARWARP=1)")
     ap.add_argument("--k4", default="kernel", help="kernel, plain32, plain64 or a checkout")
     ap.add_argument("--inits", type=int, default=16, help="seeded inits beside the bench's")
     ap.add_argument("--out", default=None)
@@ -116,9 +124,14 @@ def main() -> int:
     port = Path(opts.port).resolve()
     sys.path.insert(0, str(port))
     smoke = load_module("chip_smoke_helpers", REPO / "chip_smoke.py")
+    if opts.slab and opts.k4 != "kernel":
+        raise SystemExit("--k4 swaps a kernel of the shear-warp path; --slab does not run it")
     route_k4(opts.k4)
+    renderer = "trilinear_pallas" if opts.slab else "trilinear_fast"
+    if opts.slab:
+        os.environ["XVR_NO_SHEARWARP"] = "1"
     smi = smoke.nvidia_smi()
-    print(f"device: {smi} | port {port} | K4 {opts.k4}", flush=True)
+    print(f"device: {smi} | port {port} | renderer {renderer} | K4 {opts.k4}", flush=True)
 
     rng = np.random.default_rng(SEED)
     inits = [BENCH_INIT] + [(rng.uniform(-0.8, 0.8, 3), rng.uniform(-4.0, 4.0, 3))
@@ -128,13 +141,13 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="xvr_mtre_") as tmp:
         gt_pose, _, _ = smoke.write_scene(Path(tmp), hu, aff)
         for n, (d_rot, d_xyz) in enumerate(inits):
-            rec = register(smoke, Path(tmp), gt_pose, fids, d_rot, d_xyz)
+            rec = register(smoke, Path(tmp), gt_pose, fids, d_rot, d_xyz, renderer)
             recs.append(rec)
             print(f"init {n}: mTRE {rec['mtre_init_mm']:.3f} -> {rec['mtre_final_mm']:.4f} mm, "
                   f"wall {rec['wall_s']:.2f} s, launches {json.dumps(rec['launches'])}", flush=True)
     seeded = sorted(r["mtre_final_mm"] for r in recs[1:])
     summary = dict(
-        device=smi, port=str(port), k4=opts.k4, seed=SEED,
+        device=smi, port=str(port), renderer=renderer, k4=opts.k4, seed=SEED,
         bench_final_mm=recs[0]["mtre_final_mm"],
         median_final_mm=float(np.median(seeded)) if seeded else None,
         max_final_mm=seeded[-1] if seeded else None, inits=recs,

@@ -11,6 +11,9 @@ crosses a row) and K7 (nearest-label rounding) against float32 plain
 versions with identical positions. Tolerances are those of chip_smoke.py.
 """
 
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -210,6 +213,53 @@ def test_slab_backward_matches_plain(cuda):
     for j in range(7):
         torch.testing.assert_close(got[j], ref[j], rtol=1e-3,
                                    atol=1e-4 * float(ref[j].abs().max()))
+
+
+def _smoke():
+    """chip_smoke.py, whose K5/K6 edge geometry (SLAB_EDGE_CASES) these tests share."""
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_cases", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+SLAB_EDGE = ["steep", "parallel", "source inside", "odd sizes", "trainer batch"]
+
+
+@pytest.mark.parametrize("case", SLAB_EDGE)
+def test_slab_kernels_edge_geometry(cuda, case):
+    """K5 and K6 on rays along the planes, parallel to the window or lane
+    axis, from a source inside the volume, with M = 19 and odd lanes, and at
+    the trainer's batch of 116, with ws = 0 padding rays and ragged blocks;
+    two calls give identical bits."""
+    from xvr_tpu_torch.render import pallas as sp
+
+    smoke = _smoke()
+    assert sorted(SLAB_EDGE) == sorted(smoke.SLAB_EDGE_CASES)
+    vol, fields = smoke.slab_edge_inputs(case, device=cuda)
+    g = torch.randn(fields.shape[1:], generator=torch.Generator(cuda).manual_seed(8), device=cuda)
+    got = sp.slab_forward(vol, fields)
+    ref = sp._slab_forward(vol, fields.double())
+    assert float(ref.abs().max()) > 0
+    torch.testing.assert_close(got.double(), ref, rtol=2e-4, atol=2e-5 * float(ref.abs().max()))
+    assert torch.equal(got, sp.slab_forward(vol, fields))
+    got = sp.slab_backward(vol, fields, g)
+    ref = sp._slab_backward(vol, fields, g)
+    for j in range(7):
+        torch.testing.assert_close(got[j], ref[j], rtol=1e-3,
+                                   atol=1e-4 * float(ref[j].abs().max()))
+    assert torch.equal(got, sp.slab_backward(vol, fields, g))
+
+
+def test_slab_plane_split_is_the_models(cuda):
+    """The kernels split a ray's planes as the CPU model of their plan does."""
+    from test_torch_slab_plan import plane_split
+
+    from xvr_tpu_torch.render import _cuda
+
+    for B, R in ((16, 3600), (4, 239 * 239), (4, 120 * 120), (116, 1000), (64, 65536), (1, 7)):
+        assert _cuda.slab_plane_split(B, R) == plane_split(B, R)
 
 
 def test_slab_channels_match_plain(cuda):

@@ -1,6 +1,7 @@
 """The port stands alone: no module of ``xvr_tpu_torch``, not
-``chip_smoke.py`` and not ``scripts/chip_mtre_spread.py`` imports JAX or the
-JAX package, and importing the port leaves JAX unloaded."""
+``chip_smoke.py`` and not the port's chip scripts (``scripts/chip_*.py``)
+imports JAX or the JAX package, and importing the port leaves JAX
+unloaded."""
 
 import ast
 import subprocess
@@ -11,7 +12,8 @@ import pytest
 
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "xvr_tpu_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py", REPO / "scripts" / "chip_mtre_spread.py"]
+    REPO / "chip_smoke.py", REPO / "scripts" / "chip_mtre_spread.py",
+    REPO / "scripts" / "chip_slab_times.py"]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "xvr_tpu")
 
 

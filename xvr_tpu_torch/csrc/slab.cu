@@ -19,29 +19,59 @@
 // Here the volume is the plain (M, Wd, L) bf16 tensor that the shear-warp
 // kernels read as well: it stays whole in device memory (33.5 MB at 256^3,
 // inside the 50 MB L2), so there is no window, no pair packing and no
-// streaming. Each kernel runs one thread per ray with a loop over the march
-// planes; consecutive rays (detector columns, which the permutation puts
-// along the lane axis) sit on consecutive threads, so a warp's taps fall on
-// one or two volume rows. No shared memory, TMA or tensor cores yet: this
-// first version is the simple one, and its times on the H100 are recorded in
-// PERF.md.
+// streaming. Consecutive rays (detector columns, which the permutation puts
+// along the lane axis) sit on consecutive lanes of a warp, so a warp's taps
+// at one plane fall on one or two volume rows.
 //
 // Bound on the H100: the least bytes are the bf16 volume read once (33.5 MB,
 // ~10 us at 3.35 TB/s) plus the f32 fields and outputs; the operations are
-// 37 (K5), 121 (K6), 40 (K7) and 48 (K8) per evaluated (ray, plane) pair.
-// At the fine stage (4 x 239^2 rays, ~58M pairs) the operations bound all
-// four (30-90 us at 67 TFLOP/s); at the coarse sweep (16 x 60^2 rays) the
-// bytes bound K5, K7 and K8. This version re-reads the taps of every plane
-// from L2 per thread.
+// counted per evaluated (ray, plane) pair (chip_smoke.py's SLAB_OPS). At the
+// fine stage (4 x 239^2 rays, ~58M pairs) the operations bound all four; at
+// the coarse sweep (16 x 60^2 rays) the bytes bound K5, K7 and K8. A pair is a
+// 2 x 2 bilinear tap of one ray: there is no product to tile, so tensor cores
+// do not apply, and every kernel issues its taps from L2.
+//
+// K5 and K6 (the slab path's forward and backward, a few hundred launches
+// per registration each). PR 2's versions ran one thread per ray over all M
+// planes and were issue-bound: every plane paid the box weight, five range
+// tests, four float/int conversions (a quarter-rate unit), clamps, row masks
+// and 64-bit address arithmetic, and K6 also the six box-plane terms.
+//  - Planes split across warps. A block of 256 threads holds 256 / P rays,
+//    and P warps share the planes of the same 32 rays, so the coarse
+//    sweep's 57,600 rays fill the card (one thread per ray gave ~14 warps
+//    per SM there). plane_split() picks P from the ray count; each warp takes
+//    a contiguous range of the ray's planes, and the P partial sums are added
+//    through shared memory in warp order: no atomics, and two calls give
+//    identical bits.
+//  - A trimmed plane range. plane_range() bounds the planes whose slab can
+//    meet [a_in, a_out], one plane wider on each side for rounding; the exact
+//    validity test stays inside, so no plane with a nonzero weight is lost.
+//  - Lean planes (see lean_part()). Nearly every plane of a ray has its slab
+//    inside the box and its four taps inside the volume; on that interval,
+//    checked exactly at its two ends, a plane costs positions, two exact
+//    floors (floor_exact()), four loads at one 32-bit offset and the
+//    bilinear sum, with no test, clamp or mask. The other planes take the
+//    full path, where an invalid plane taps (0, 0) with zero weight.
+//  - K6 on a lean plane: the box-plane terms of s0, s1, s2, d1 and d2 are
+//    (a + 0) - (a - 0) = 0 exactly and only d0 keeps its half-width term; the
+//    per-ray factors come out of the plane sums. Only a plane that holds a
+//    box end (at most two at each end of a ray) adds the box-plane terms,
+//    from partials kept as (axis, d/ds, d/dd) for a_in and for a_out.
+//  - K5 fuses its positions, taps and sums (__fmaf_rn): it is held to a
+//    float64 reference and sums positive terms, and a lean plane's weight is
+//    exactly 1. K6 keeps every position rounded on its own (below).
+// On the H100 this took K5 from 0.28 to 0.09 ms and K6 from 0.53 to 0.16 ms
+// at the fine stage (scripts/chip_slab_times.py, PERF.md). K7 and K8 keep
+// PR 2's first plan: one thread per ray, all M planes.
 //
 // This file is compiled with -fmad=false: every multiply and add rounds on
-// its own, as the plain PyTorch versions compute them. The backward's terms
-// jump where a sample crosses a voxel row (the tent slope flips), so a
-// position one ulp off can change a term; the checks hold K6 to a float32
-// plain version with identical positions on that basis. The nearest-label
-// (K7) and Siddon (K8) roundings are half to even (__float2int_rn), as
-// jnp.round, and float-to-int casts of window/lane positions truncate, as
-// astype(int32).
+// its own, as the plain PyTorch versions compute them, except where a kernel
+// asks for a fused one. The backward's terms jump where a sample crosses a voxel
+// row (the tent slope flips), so a position one ulp off can change a term;
+// the checks hold K6 to a float32 plain version with identical positions on
+// that basis. The nearest-label (K7) and Siddon (K8) roundings are half to
+// even (__float2int_rn), as jnp.round, and float-to-int casts of window/lane
+// positions truncate, as astype(int32).
 //
 // Fields are one (7, B, R) f32 tensor: s0, s1, s2, d0, d1, d2, ws. Every
 // entry point launches on the caller's stream, allocates nothing, and
@@ -57,6 +87,16 @@ namespace {
 constexpr float BIG = 3e38f;
 constexpr int THREADS = 256;
 constexpr int MAX_CHANNELS = 16;
+// K5/K6: at most SPLIT_MAX warps share one ray's planes; the split doubles
+// until the grid holds SPLIT_TARGET_WARPS warps (the CPU model in
+// tests/test_torch_slab_plan.py copies both)
+constexpr int SPLIT_MAX = 8;
+constexpr int SPLIT_TARGET_WARPS = 8448;  // one wave of 132 SMs x 64 warps
+// K5/K6: planes per unrolled step of the plane loop
+constexpr int K5_UNROLL = 2;
+constexpr int K6_UNROLL = 2;
+// K6: blocks of THREADS that its register budget lets one SM hold
+constexpr int K6_BLOCKS_PER_SM = 3;
 
 struct Ray {
   float s0, s1, s2, d0, d1, d2, ws;
@@ -153,31 +193,222 @@ __device__ __forceinline__ float rows_sum(const __nv_bfloat16* __restrict__ slab
 }
 
 // ---------------------------------------------------------------------------
-// K5: out = ws * sum_k w_alpha(k) sum_rows tent(p1 - z) lerp_lane(V[k, z], p2)
+// K5/K6 plan: P warps per 32 rays, each over a contiguous part of the ray's
+// trimmed plane range
 // ---------------------------------------------------------------------------
-__global__ void slab_forward_kernel(const __nv_bfloat16* __restrict__ vol, int M, int Wd, int L,
-                                    const float* __restrict__ fields, float* __restrict__ out,
-                                    int B, int R) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+
+// Warps that share one ray's planes for B x R rays: doubled from 1 while the
+// grid holds fewer than SPLIT_TARGET_WARPS warps, at most SPLIT_MAX.
+int plane_split(int B, int R) {
+  const long long warps = (long long)B * ((R + 31) / 32);
+  int p = 1;
+  while (p < SPLIT_MAX && warps * p < SPLIT_TARGET_WARPS) p *= 2;
+  return p;
+}
+
+// The box [a_in, a_out] in plane units, k = s0 + alpha safe_d0, sorted.
+__device__ __forceinline__ void box_planes(float s0, float safe_d0, float a_in, float a_out,
+                                           float* k_lo, float* k_hi) {
+  const float e1 = __fmaf_rn(a_in, safe_d0, s0), e2 = __fmaf_rn(a_out, safe_d0, s0);
+  *k_lo = fminf(e1, e2);
+  *k_hi = fmaxf(e1, e2);
+}
+
+// Planes [*lo, *hi] whose slab can meet the box (a_out > a_in; else empty,
+// *lo > *hi). Plane k's slab is alpha_k +- half with alpha_k = (k - s0) /
+// safe_d0, so it overlaps the box iff k lies in (k_lo - 1/2, k_hi + 1/2); the
+// range is one plane wider on each side, so float rounding of either side
+// drops nothing.
+__device__ __forceinline__ void plane_range(bool box, float k_lo, float k_hi, int M, int* lo,
+                                            int* hi) {
+  if (!box) {
+    *lo = 0;
+    *hi = -1;
+    return;
+  }
+  *lo = (int)fmaxf(floorf(k_lo - 0.5f), 0.0f);
+  *hi = (int)fminf(ceilf(k_hi + 0.5f), (float)(M - 1));
+}
+
+// This thread's part [*kb, *ke) of the planes [lo, hi] split into `split`
+// contiguous parts of ceil(n / split) planes.
+__device__ __forceinline__ void plane_part(int lo, int hi, int split, int part, int* kb,
+                                           int* ke) {
+  const int n = max(hi - lo + 1, 0);
+  const int chunk = (n + split - 1) / split;
+  *kb = min(lo + part * chunk, hi + 1);
+  *ke = min(*kb + chunk, hi + 1);
+}
+
+// Lean planes. Where a plane's slab lies inside the box and both rows and
+// both lanes of its taps inside the volume, it needs no validity test, no
+// clamp and no row mask (K6's full plane computes the same bits there; K5's
+// lean weight is exactly 1 where the full plane rounds it). Every
+// quantity the tests read (positions, slab ends) is a monotone function of k
+// under float rounding, so the lean planes of a ray are an interval: the
+// kernels estimate it, check both of its ends exactly, and march it without
+// the tests (or, if a check fails, march every plane in full).
+
+// Narrows [*ka, *kz] to the planes k with lo <= c + k m < hi, one plane to
+// spare on each side (an estimate: a poor one costs time, never a plane).
+__device__ __forceinline__ void narrow(float c, float m, float lo, float hi, float* ka,
+                                       float* kz) {
+  const float t1 = __fdividef(lo - c, m), t2 = __fdividef(hi - c, m);
+  *ka = fmaxf(*ka, fminf(t1, t2) + 1.0f);  // fminf/fmaxf drop a NaN of m = 0
+  *kz = fminf(*kz, fmaxf(t1, t2) - 1.0f);
+}
+
+// The whole planes of [ka, kz] in [kb, ke) as [*ia, *ib); empty as [ke, ke).
+__device__ __forceinline__ void lean_part(float ka, float kz, int kb, int ke, int* ia, int* ib) {
+  ka = fmaxf(ka, (float)kb);
+  kz = fminf(kz, (float)(ke - 1));
+  *ia = *ib = ke;
+  if (ka <= kz && (int)ceilf(ka) <= (int)floorf(kz)) {
+    *ia = (int)ceilf(ka);
+    *ib = (int)floorf(kz) + 1;
+  }
+}
+
+// The thread's place in a K5/K6 block: warp (group * split + part) holds the
+// part-th plane range of the group's 32 rays.
+struct Slot {
+  int part, r;
+};
+
+__device__ __forceinline__ Slot slot_of(int split) {
+  const int warp = threadIdx.x >> 5;
+  return {warp % split, blockIdx.x * (THREADS / split) + (warp / split) * 32 + (threadIdx.x & 31)};
+}
+
+// For the part-0 thread: the sum of its rays' values in `part` (one per
+// thread) over the split parts, in part order.
+__device__ __forceinline__ float sum_parts(const float* part, int split) {
+  float s = part[threadIdx.x];
+  for (int q = 1; q < split; ++q) s = s + part[threadIdx.x + q * 32];
+  return s;
+}
+
+__device__ __forceinline__ float ld(const __nv_bfloat16* p) { return __bfloat162float(__ldg(p)); }
+
+// The voxel at row `row` of the plane and lane that `base` (plane offset +
+// lane) points at: a 32-bit offset (the entry points refuse volumes of 2^31
+// voxels or more), so that the address is one wide multiply-add.
+__device__ __forceinline__ const __nv_bfloat16* tap(const __nv_bfloat16* vol, uint32_t base,
+                                                    int row, int L) {
+  return vol + (base + (uint32_t)(row * L));
+}
+
+// floor(x) as a float and as an int, for |x| < 2^22: one add rounded down
+// into [2^23, 2^24), where the floats are the integers, so both are exact
+// and run on the FP32 and integer pipes instead of the conversion unit
+// (a quarter of their rate). The entry points refuse Wd or L >= 2^22.
+constexpr float FLOOR_MAGIC = 12582912.0f;  // 1.5 * 2^23
+constexpr int MAX_EXTENT = 1 << 22;
+__device__ __forceinline__ float floor_exact(float x, int* i) {
+  const float t = __fadd_rd(x, FLOOR_MAGIC);
+  *i = __float_as_int(t) - __float_as_int(FLOOR_MAGIC);
+  return t - FLOOR_MAGIC;
+}
+
+// ---------------------------------------------------------------------------
+// K5: out = ws * sum_k w_alpha(k) sum_rows tent(p1 - z) lerp_lane(V[k, z], p2)
+// A lean plane's slab lies inside the box, so its weight is exactly 1 (the
+// plain version's (alpha + half) - (alpha - half) rounds it); the full
+// planes take the plain version's weight and positions, fused. STEP is the
+// lane step of a tap pair (0 for a volume of one lane).
+// ---------------------------------------------------------------------------
+template <int STEP>
+__global__ void __launch_bounds__(THREADS)
+slab_forward_kernel(const __nv_bfloat16* __restrict__ vol, int M, int Wd, int L,
+                    const float* __restrict__ fields, float* __restrict__ out, int B, int R,
+                    int split) {
+  __shared__ float part[THREADS];
+  const Slot sl = slot_of(split);
   const int b = blockIdx.y;
-  if (r >= R) return;
-  const size_t n = (size_t)B * R, o = (size_t)b * R + r;
-  const Ray ray = load_ray(fields, n, o);
-  float acc = 0.0f;
-  if (ray.ws > 0.0f) {
-    const float safe_d0 = fabsf(ray.d0) < 1e-6f ? 1e-6f : ray.d0;
-    const float inv_d0 = 1.0f / safe_d0;
-    const float half = 0.5f * fabsf(inv_d0);
-    const float abs_d0 = fabsf(safe_d0);
-    float a_in, a_out;
-    ray_box(ray, M, Wd, L, &a_in, &a_out);
-    for (int k = 0; k < M; ++k) {
-      const Sample s = slab_sample(ray, k, inv_d0, half, abs_d0, a_in, a_out, Wd, L);
-      if (!s.valid) continue;
-      acc = rows_sum(vol + (size_t)k * Wd * L, Wd, L, s.p1, lane_tap(s.p2, L), s.w_alpha, acc);
+  const bool live = sl.r < R;
+  const size_t n = (size_t)B * R, o = (size_t)b * R + sl.r;
+  float acc = 0.0f, ws = 0.0f;
+  if (live) {
+    const Ray ray = load_ray(fields, n, o);
+    ws = ray.ws;
+    if (ray.ws > 0.0f) {
+      const float safe_d0 = fabsf(ray.d0) < 1e-6f ? 1e-6f : ray.d0;
+      const float inv_d0 = 1.0f / safe_d0;
+      const float half = 0.5f * fabsf(inv_d0);
+      const float abs_d0 = fabsf(safe_d0);
+      float a_in, a_out, k_lo, k_hi;
+      ray_box(ray, M, Wd, L, &a_in, &a_out);
+      box_planes(ray.s0, safe_d0, a_in, a_out, &k_lo, &k_hi);
+      int lo, hi, kb, ke;
+      plane_range(a_out > a_in, k_lo, k_hi, M, &lo, &hi);
+      plane_part(lo, hi, split, sl.part, &kb, &ke);
+      const float Wf = (float)Wd, Lm1 = (float)(L - 1);
+      const int lane_max = L > 1 ? L - 2 : 0;
+      const uint32_t plane = (uint32_t)Wd * L;
+
+      auto full = [&](int k) {
+        const float alpha = ((float)k - ray.s0) * inv_d0;
+        const float p1 = __fmaf_rn(alpha, ray.d1, ray.s1);
+        const float p2 = __fmaf_rn(alpha, ray.d2, ray.s2);
+        const float w = fmaxf(fminf(alpha + half, a_out) - fmaxf(alpha - half, a_in), 0.0f) * abs_d0;
+        const bool valid = (w > 0.0f) && (p1 > -1.0f) && (p1 < Wf) && (p2 >= 0.0f) && (p2 <= Lm1);
+        // an invalid plane taps (0, 0) with zero weight
+        const float q1 = valid ? p1 : 0.0f, q2 = valid ? p2 : 0.0f;
+        int idx, z0;
+        const float idx_f = floor_exact(q2, &idx);  // q2 >= 0: the truncation of astype(int32)
+        const float fx = q2 - fminf(idx_f, (float)lane_max);
+        idx = min(idx, lane_max);
+        const float fy = q1 - floor_exact(q1, &z0);
+        const uint32_t slab = (uint32_t)k * plane + idx;
+        const __nv_bfloat16* t0 = tap(vol, slab, max(z0, 0), L);
+        const __nv_bfloat16* t1 = tap(vol, slab, min(z0 + 1, Wd - 1), L);
+        const float lo0 = ld(t0), hi0 = ld(t0 + STEP);
+        const float lo1 = ld(t1), hi1 = ld(t1 + STEP);
+        // rows z0 and z0 + 1 weigh 1 - fy and fy; a row outside the volume adds 0
+        const float v0 = z0 >= 0 ? __fmaf_rn(fx, hi0 - lo0, lo0) : 0.0f;
+        const float v1 = z0 + 1 < Wd ? __fmaf_rn(fx, hi1 - lo1, lo1) : 0.0f;
+        acc = __fmaf_rn(valid ? w : 0.0f, __fmaf_rn(fy, v1 - v0, v0), acc);
+      };
+      // lean: the slab inside the box, 0 <= p1 < Wd - 1 and 0 <= p2 < L - 1
+      auto is_lean = [&](int k) {
+        const float alpha = ((float)k - ray.s0) * inv_d0;
+        const float p1 = __fmaf_rn(alpha, ray.d1, ray.s1);
+        const float p2 = __fmaf_rn(alpha, ray.d2, ray.s2);
+        return (alpha + half <= a_out) && (alpha - half >= a_in) && (p1 >= 0.0f) &&
+               (p1 < Wf - 1.0f) && (p2 >= 0.0f) && (p2 < Lm1);
+      };
+      const float m1 = ray.d1 * inv_d0, m2 = ray.d2 * inv_d0;
+      float ka = k_lo + 1.5f, kz = k_hi - 1.5f;
+      narrow(ray.s1 - ray.s0 * m1, m1, 0.0f, Wf - 1.0f, &ka, &kz);
+      narrow(ray.s2 - ray.s0 * m2, m2, 0.0f, Lm1, &ka, &kz);
+      int ia, ib;
+      lean_part(ka, kz, kb, ke, &ia, &ib);
+      if (ia < ib && !(is_lean(ia) && is_lean(ib - 1))) ia = ib = ke;
+
+      for (int k = kb; k < ia; ++k) full(k);
+      uint32_t slab = (uint32_t)ia * plane;
+      float kf = (float)ia;
+#pragma unroll (K5_UNROLL)
+      for (int k = ia; k < ib; ++k, kf += 1.0f, slab += plane) {
+        const float alpha = (kf - ray.s0) * inv_d0;
+        const float p1 = __fmaf_rn(alpha, ray.d1, ray.s1);
+        const float p2 = __fmaf_rn(alpha, ray.d2, ray.s2);
+        int idx, z0;
+        const float fx = p2 - floor_exact(p2, &idx);
+        const float fy = p1 - floor_exact(p1, &z0);
+        const __nv_bfloat16* t0 = tap(vol, slab + idx, z0, L);
+        const float lo0 = ld(t0), hi0 = ld(t0 + 1);
+        const float lo1 = ld(t0 + L), hi1 = ld(t0 + L + 1);
+        const float v0 = __fmaf_rn(fx, hi0 - lo0, lo0);
+        const float v1 = __fmaf_rn(fx, hi1 - lo1, lo1);
+        acc = acc + __fmaf_rn(fy, v1 - v0, v0);
+      }
+      for (int k = ib; k < ke; ++k) full(k);
     }
   }
-  out[o] = acc * ray.ws;
+  part[threadIdx.x] = acc;
+  __syncthreads();
+  if (sl.part == 0 && live) out[o] = sum_parts(part, split) * ws;
 }
 
 // ---------------------------------------------------------------------------
@@ -229,145 +460,235 @@ __global__ void slab_channels_kernel(const __nv_bfloat16* __restrict__ vol,
 
 // ---------------------------------------------------------------------------
 // K6: the analytic per-ray VJP of K5 with respect to the 7 fields, with
-// subgradients through the active box plane. One thread per ray re-marches
-// the planes and keeps its 7 sums in float32, as the TPU kernel does: on the
-// H100 at the path's shapes, double sums sat exactly as far from a float64
-// reference as float32 sums (1.0e-2 of max, all of it from tent slopes that
-// flip where a float32 position rounds across a row). The arithmetic of every
-// term follows the TPU kernel operation by operation.
+// subgradients through the active box plane, in K5's plan. Per plane the
+// TPU kernel adds, for field j, gc (dW_j Bs + W rest_j) with gc = g ws,
+// rest = (d1 dB1 + d2 dB2) da/ds0, dB1, dB2, (d1 dB1 + d2 dB2) da/dd0,
+// alpha dB1, alpha dB2 for s0 s1 s2 d0 d1 d2, da/ds0 = -1/d0 and
+// da/dd0 = -alpha/d0. The per-ray factors (gc, 1/d0, d1, d2) come out of the
+// plane sum: a plane adds W dB1, W dB2, their alpha multiples, dW_3 Bs and
+// W Bs to six sums, and a box-end plane adds dW_j Bs for the other five
+// fields to five more; the fields are formed from the sums once per ray.
+// Sums are float32, as the TPU kernel's: on the H100 at the path's shapes,
+// double sums sat exactly as far from a float64 reference as float32 sums
+// (1.0e-2 of max, all of it from tent slopes that flip where a float32
+// position rounds across a row). Positions, box flags and tent taps are the
+// plain version's operations, each rounded on its own, computed from k on
+// every plane and never stepped.
 // ---------------------------------------------------------------------------
-__device__ __forceinline__ float dspan(bool open, bool u_int, bool v_int, float d_alpha,
-                                       float d_h, float d_ain, float d_aout) {
+__device__ __forceinline__ float dspan(bool u_int, bool v_int, float d_alpha, float d_h,
+                                       float d_ain, float d_aout) {
   const float du = u_int ? d_alpha + d_h : d_aout;
   const float dv = v_int ? d_alpha - d_h : d_ain;
-  return open ? du - dv : 0.0f;
+  return du - dv;
 }
 
-__global__ void slab_backward_kernel(const __nv_bfloat16* __restrict__ vol, int M, int Wd, int L,
-                                     const float* __restrict__ fields,
-                                     const float* __restrict__ gin, float* __restrict__ gout,
-                                     int B, int R) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+// The partial of a box end (a_in or a_out) with respect to field j (order
+// s0 s1 s2 d0 d1 d2): only its active axis `ax` has one (ax < 0: none).
+struct BoxEnd {
+  int ax;
+  float ds, dd;
+  __device__ __forceinline__ float partial(int j) const {
+    return j == ax ? ds : (j == ax + 3 ? dd : 0.0f);
+  }
+};
+
+template <int STEP>
+__global__ void __launch_bounds__(THREADS, K6_BLOCKS_PER_SM)
+slab_backward_kernel(const __nv_bfloat16* __restrict__ vol, int M, int Wd, int L,
+                     const float* __restrict__ fields, const float* __restrict__ gin,
+                     float* __restrict__ gout, int B, int R, int split) {
+  __shared__ float part[7][THREADS];
+  const Slot sl = slot_of(split);
   const int b = blockIdx.y;
-  if (r >= R) return;
-  const size_t n = (size_t)B * R, o = (size_t)b * R + r;
-  const Ray ray = load_ray(fields, n, o);
-  const float g = gin[o];
-  float acc = 0.0f, G[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-  if (ray.ws > 0.0f) {
-    const float safe_d0 = fabsf(ray.d0) < 1e-6f ? 1e-6f : ray.d0;
-    const float inv_d0 = 1.0f / safe_d0;
-    const float abs_d0 = fabsf(safe_d0);
-    const float sgn_d0 = sign_of(safe_d0);
-    const float half = 0.5f / abs_d0;
-    const float dh_dd0 = -sgn_d0 * 2.0f * half * half;  // d(1/(2|d0|))/d d0
+  const bool live = sl.r < R;
+  const size_t n = (size_t)B * R, o = (size_t)b * R + sl.r;
+  float g = 0.0f, G[7] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};  // G[6]: the forward sum
+  if (live) {
+    const Ray ray = load_ray(fields, n, o);
+    g = gin[o];
+    if (ray.ws > 0.0f) {
+      const float safe_d0 = fabsf(ray.d0) < 1e-6f ? 1e-6f : ray.d0;
+      const float inv_d0 = 1.0f / safe_d0;
+      const float abs_d0 = fabsf(safe_d0);
+      const float sgn_d0 = sign_of(safe_d0);
+      const float half = 0.5f / abs_d0;
+      const float dh_dd0 = -sgn_d0 * 2.0f * half * half;  // d(1/(2|d0|))/d d0
 
-    // box entry/exit and their partials (order s0 s1 s2 d0 d1 d2); only the
-    // active axis and side contributes
-    float a_in = 0.0f, a_out = 1.0f;
-    float dain[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-    float daout[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-    const float ss[3] = {ray.s0, ray.s1, ray.s2};
-    const float dd[3] = {ray.d0, ray.d1, ray.d2};
-    const int nn[3] = {M, Wd, L};
+      // box entry/exit and the partials of the active axis and side
+      float a_in = 0.0f, a_out = 1.0f;
+      BoxEnd ein = {-1, 0.0f, 0.0f}, eout = {-1, 0.0f, 0.0f};
+      const float ss[3] = {ray.s0, ray.s1, ray.s2};
+      const float dd[3] = {ray.d0, ray.d1, ray.d2};
+      const int nn[3] = {M, Wd, L};
 #pragma unroll
-    for (int ax = 0; ax < 3; ++ax) {
-      const float s = ss[ax], d = dd[ax];
-      const bool parallel = fabsf(d) < 1e-9f;
-      const float safe = parallel ? 1e-9f : d;
-      const float t1 = (-0.5f - s) / safe;
-      const float t2 = ((float)nn[ax] - 0.5f - s) / safe;
-      const bool use1_lo = t1 <= t2;
-      float lo = use1_lo ? t1 : t2;
-      float hi = use1_lo ? t2 : t1;
-      const float inv = 1.0f / safe;
-      float dls = -inv, dhs = -inv;
-      float dld = -lo * inv, dhd = -hi * inv;
-      if (parallel) {
-        const bool inside = (s > -0.5f) && (s < (float)nn[ax] - 0.5f);
-        lo = inside ? -BIG : BIG;
-        hi = inside ? BIG : -BIG;
-        dls = dld = dhs = dhd = 0.0f;
+      for (int ax = 0; ax < 3; ++ax) {
+        const float s = ss[ax], d = dd[ax];
+        const bool parallel = fabsf(d) < 1e-9f;
+        const float safe = parallel ? 1e-9f : d;
+        const float t1 = (-0.5f - s) / safe;
+        const float t2 = ((float)nn[ax] - 0.5f - s) / safe;
+        const bool use1_lo = t1 <= t2;
+        float lo = use1_lo ? t1 : t2;
+        float hi = use1_lo ? t2 : t1;
+        const float inv = 1.0f / safe;
+        float dls = -inv, dhs = -inv;
+        float dld = -lo * inv, dhd = -hi * inv;
+        if (parallel) {
+          const bool inside = (s > -0.5f) && (s < (float)nn[ax] - 0.5f);
+          lo = inside ? -BIG : BIG;
+          hi = inside ? BIG : -BIG;
+          dls = dld = dhs = dhd = 0.0f;
+        }
+        if (lo > a_in) ein = {ax, dls, dld};
+        a_in = fmaxf(a_in, lo);
+        if (hi < a_out) eout = {ax, dhs, dhd};
+        a_out = fminf(a_out, hi);
       }
-      if (lo > a_in) {
-#pragma unroll
-        for (int j = 0; j < 6; ++j) dain[j] = 0.0f;
-        dain[ax] = dls;
-        dain[3 + ax] = dld;
-      }
-      a_in = fmaxf(a_in, lo);
-      if (hi < a_out) {
-#pragma unroll
-        for (int j = 0; j < 6; ++j) daout[j] = 0.0f;
-        daout[ax] = dhs;
-        daout[3 + ax] = dhd;
-      }
-      a_out = fminf(a_out, hi);
-    }
-    if (a_out < a_in) {
-#pragma unroll
-      for (int j = 0; j < 6; ++j) daout[j] = dain[j];
-    }
-    a_out = fmaxf(a_out, a_in);
+      if (a_out < a_in) eout = ein;
+      a_out = fmaxf(a_out, a_in);
 
-    const float gc = g * ray.ws;
-    const float da_ds0 = -inv_d0;
-    for (int k = 0; k < M; ++k) {
-      const float alpha = ((float)k - ray.s0) * inv_d0;
-      const float da_dd0 = -alpha * inv_d0;
-      const float p1 = ray.s1 + alpha * ray.d1;
-      const float p2 = ray.s2 + alpha * ray.d2;
-      const float u_arg = alpha + half;
-      const float v_arg = alpha - half;
-      const float u = fminf(u_arg, a_out);
-      const float v = fmaxf(v_arg, a_in);
-      const float span = fmaxf(u - v, 0.0f);
-      const float W = span * abs_d0;
-      const bool open = span > 0.0f;
-      const bool u_int = u_arg < a_out;
-      const bool v_int = v_arg > a_in;
-      const bool valid = open && (p1 > -1.0f) && (p1 < (float)Wd) && (p2 >= 0.0f) &&
-                         (p2 <= (float)(L - 1));
-      if (!valid) continue;  // every term of an invalid plane is zero
+      float k_lo, k_hi;
+      box_planes(ray.s0, safe_d0, a_in, a_out, &k_lo, &k_hi);
+      int lo, hi, kb, ke;
+      plane_range(a_out > a_in, k_lo, k_hi, M, &lo, &hi);
+      plane_part(lo, hi, split, sl.part, &kb, &ke);
+      const float Wf = (float)Wd, Lm1 = (float)(L - 1);
+      const int lane_max = L > 1 ? L - 2 : 0;
+      const uint32_t plane = (uint32_t)Wd * L;
+      const float da_ds0 = -inv_d0;
+      // sums over the planes: W dB1, W dB2, alpha W dB1, alpha W dB2, dW_3 Bs,
+      // W Bs, and dW_j Bs of the box-end planes for s0, s1, s2, d1, d2
+      float S1 = 0.0f, S2 = 0.0f, S1a = 0.0f, S2a = 0.0f, S3 = 0.0f, S6 = 0.0f;
+      float E[5] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+      auto add = [&](float W, float alpha, float Bs, float dB1, float dB2, float dW3) {
+        const float WdB1 = W * dB1, WdB2 = W * dB2;
+        S1 = S1 + WdB1;
+        S2 = S2 + WdB2;
+        S1a = __fmaf_rn(WdB1, alpha, S1a);
+        S2a = __fmaf_rn(WdB2, alpha, S2a);
+        S6 = __fmaf_rn(W, Bs, S6);
+        S3 = __fmaf_rn(dW3, Bs, S3);
+      };
 
-      const LaneTap t = lane_tap(p2, L);
-      const __nv_bfloat16* slab = vol + (size_t)k * Wd * L;
-      const int z0 = (int)floorf(p1);
-      float Bs = 0.0f, dB1 = 0.0f, dB2 = 0.0f;
+      auto full = [&](int k) {
+        const float kf = (float)k;
+        const float alpha = (kf - ray.s0) * inv_d0;
+        const float da_dd0 = -alpha * inv_d0;
+        const float p1 = ray.s1 + alpha * ray.d1;
+        const float p2 = ray.s2 + alpha * ray.d2;
+        const float u_arg = alpha + half;
+        const float v_arg = alpha - half;
+        const float span = fmaxf(fminf(u_arg, a_out) - fmaxf(v_arg, a_in), 0.0f);
+        const bool u_int = u_arg < a_out;
+        const bool v_int = v_arg > a_in;
+        const bool valid = (span > 0.0f) && (p1 > -1.0f) && (p1 < Wf) && (p2 >= 0.0f) &&
+                           (p2 <= Lm1);
+        const float W = valid ? span * abs_d0 : 0.0f;
+
+        // an invalid plane taps (0, 0) with W = 0
+        const float q1 = valid ? p1 : 0.0f, q2 = valid ? p2 : 0.0f;
+        int idx, z0;
+        const float idx_f = floor_exact(q2, &idx);  // q2 >= 0: the truncation of astype(int32)
+        const float fx = q2 - fminf(idx_f, (float)lane_max);
+        idx = min(idx, lane_max);
+        const float z0_f = floor_exact(q1, &z0);
+        // rows z0 and z0 + 1 at p1 - z = d0 in [0, 1] and d1 in [-1, 0): the
+        // plain version's tent max(1 - |d|, 0) and slope -sign(d) of a row in
+        // the volume with |d| < 1 are 1 - d0, -1 (-0 at d0 = 0) and 1 + d1, +1
+        const float d0 = q1 - z0_f, d1 = q1 - (z0_f + 1.0f);
+        const bool on0 = (z0 >= 0) && (d0 < 1.0f);
+        const bool on1 = (z0 + 1 < Wd) && (d1 > -1.0f);
+        const uint32_t slab = (uint32_t)k * plane + idx;
+        const __nv_bfloat16* t0 = tap(vol, slab, max(z0, 0), L);
+        const __nv_bfloat16* t1 = tap(vol, slab, min(z0 + 1, Wd - 1), L);
+        const float lo0 = ld(t0), hi0 = ld(t0 + STEP);
+        const float lo1 = ld(t1), hi1 = ld(t1 + STEP);
+        const float val0 = __fmaf_rn(fx, hi0 - lo0, lo0), val1 = __fmaf_rn(fx, hi1 - lo1, lo1);
+        const float wz0 = on0 ? 1.0f - d0 : 0.0f, wz1 = on1 ? 1.0f + d1 : 0.0f;
+        const float Bs = __fmaf_rn(wz1, val1, wz0 * val0);
+        const float dB1 = (on1 ? val1 : 0.0f) - (on0 && d0 > 0.0f ? val0 : 0.0f);
+        const float dB2 = __fmaf_rn(wz1, hi1 - lo1, wz0 * (hi0 - lo0));
+
+        // interior plane: the box-plane terms are 0 except d0's half-width one
+        float dW3 = abs_d0 * ((da_dd0 + dh_dd0) - (da_dd0 - dh_dd0)) + span * sgn_d0;
+        if (valid && !(u_int && v_int)) {
+          // a box end inside this slab: the full box-plane terms
+          dW3 = abs_d0 * dspan(u_int, v_int, da_dd0, dh_dd0, ein.partial(3), eout.partial(3)) +
+                span * sgn_d0;
+          const float d_alpha[5] = {da_ds0, 0.0f, 0.0f, 0.0f, 0.0f};
+          const int field[5] = {0, 1, 2, 4, 5};
 #pragma unroll
-      for (int dz = 0; dz < 2; ++dz) {
-        const int z = z0 + dz;
-        if (z < 0 || z >= Wd) continue;
-        const float diff = p1 - (float)z;
-        if (!(fabsf(diff) < 1.0f)) continue;
-        const float wz = fmaxf(1.0f - fabsf(diff), 0.0f);
-        const float dtri = -sign_of(diff);
-        const float lo = __bfloat162float(slab[(size_t)z * L + t.idx]);
-        const float hi = __bfloat162float(slab[(size_t)z * L + t.idx_hi]);
-        const float val = lo + t.fx * (hi - lo);
-        Bs = Bs + wz * val;
-        dB1 = dB1 + dtri * val;
-        dB2 = dB2 + wz * (hi - lo);
-      }
+          for (int j = 0; j < 5; ++j) {
+            const float dW = abs_d0 * dspan(u_int, v_int, d_alpha[j], 0.0f, ein.partial(field[j]),
+                                            eout.partial(field[j]));
+            E[j] = __fmaf_rn(dW, Bs, E[j]);
+          }
+        }
+        add(W, alpha, Bs, dB1, dB2, valid ? dW3 : 0.0f);
+      };
+      // lean: u_int, v_int and an open slab, 0 <= p1 < Wd - 1 and 0 <= p2 < L - 1
+      auto is_lean = [&](int k) {
+        const float alpha = ((float)k - ray.s0) * inv_d0;
+        const float p1 = ray.s1 + alpha * ray.d1;
+        const float p2 = ray.s2 + alpha * ray.d2;
+        const float u_arg = alpha + half;
+        const float v_arg = alpha - half;
+        return (u_arg < a_out) && (v_arg > a_in) && (u_arg > v_arg) && (p1 >= 0.0f) &&
+               (p1 < Wf - 1.0f) && (p2 >= 0.0f) && (p2 < Lm1);
+      };
+      const float m1 = ray.d1 * inv_d0, m2 = ray.d2 * inv_d0;
+      float ka = k_lo + 1.5f, kz = k_hi - 1.5f;
+      narrow(ray.s1 - ray.s0 * m1, m1, 0.0f, Wf - 1.0f, &ka, &kz);
+      narrow(ray.s2 - ray.s0 * m2, m2, 0.0f, Lm1, &ka, &kz);
+      int ia, ib;
+      lean_part(ka, kz, kb, ke, &ia, &ib);
+      if (ia < ib && !(is_lean(ia) && is_lean(ib - 1))) ia = ib = ke;
 
-      float dW = abs_d0 * dspan(open, u_int, v_int, da_ds0, 0.0f, dain[0], daout[0]);
-      G[0] = G[0] + gc * (dW * Bs + W * (dB1 * ray.d1 * da_ds0 + dB2 * ray.d2 * da_ds0));
-      dW = abs_d0 * dspan(open, u_int, v_int, 0.0f, 0.0f, dain[1], daout[1]);
-      G[1] = G[1] + gc * (dW * Bs + W * dB1);
-      dW = abs_d0 * dspan(open, u_int, v_int, 0.0f, 0.0f, dain[2], daout[2]);
-      G[2] = G[2] + gc * (dW * Bs + W * dB2);
-      dW = abs_d0 * dspan(open, u_int, v_int, da_dd0, dh_dd0, dain[3], daout[3]) + span * sgn_d0;
-      G[3] = G[3] + gc * (dW * Bs + W * (dB1 * ray.d1 * da_dd0 + dB2 * ray.d2 * da_dd0));
-      dW = abs_d0 * dspan(open, u_int, v_int, 0.0f, 0.0f, dain[4], daout[4]);
-      G[4] = G[4] + gc * (dW * Bs + W * dB1 * alpha);
-      dW = abs_d0 * dspan(open, u_int, v_int, 0.0f, 0.0f, dain[5], daout[5]);
-      G[5] = G[5] + gc * (dW * Bs + W * dB2 * alpha);
-      acc = acc + W * Bs;
+      for (int k = kb; k < ia; ++k) full(k);
+      uint32_t slab = (uint32_t)ia * plane;
+      float kf = (float)ia;
+#pragma unroll (K6_UNROLL)
+      for (int k = ia; k < ib; ++k, kf += 1.0f, slab += plane) {
+        const float alpha = (kf - ray.s0) * inv_d0;
+        const float da_dd0 = -alpha * inv_d0;
+        const float p1 = ray.s1 + alpha * ray.d1;
+        const float p2 = ray.s2 + alpha * ray.d2;
+        const float span = (alpha + half) - (alpha - half);
+        int idx, z0;
+        const float fx = p2 - floor_exact(p2, &idx);
+        const float z0_f = floor_exact(p1, &z0);
+        const float d0 = p1 - z0_f, d1 = p1 - (z0_f + 1.0f);
+        const bool on1 = d1 > -1.0f;  // false where p1 is a whole row
+        const __nv_bfloat16* t0 = tap(vol, slab + idx, z0, L);
+        const float lo0 = ld(t0), hi0 = ld(t0 + 1);
+        const float lo1 = ld(t0 + L), hi1 = ld(t0 + L + 1);
+        const float val0 = __fmaf_rn(fx, hi0 - lo0, lo0), val1 = __fmaf_rn(fx, hi1 - lo1, lo1);
+        const float wz0 = 1.0f - d0, wz1 = on1 ? 1.0f + d1 : 0.0f;
+        const float Bs = __fmaf_rn(wz1, val1, wz0 * val0);
+        const float dB1 = (on1 ? val1 : 0.0f) - (d0 > 0.0f ? val0 : 0.0f);
+        const float dB2 = __fmaf_rn(wz1, hi1 - lo1, wz0 * (hi0 - lo0));
+        add(span * abs_d0, alpha, Bs, dB1, dB2,
+            abs_d0 * ((da_dd0 + dh_dd0) - (da_dd0 - dh_dd0)) + span * sgn_d0);
+      }
+      for (int k = ib; k < ke; ++k) full(k);
+      const float gc = g * ray.ws;
+      G[0] = gc * (E[0] + da_ds0 * (ray.d1 * S1 + ray.d2 * S2));
+      G[1] = gc * (E[1] + S1);
+      G[2] = gc * (E[2] + S2);
+      G[3] = gc * (S3 - inv_d0 * (ray.d1 * S1a + ray.d2 * S2a));
+      G[4] = gc * (E[3] + S1a);
+      G[5] = gc * (E[4] + S2a);
+      G[6] = S6;
     }
   }
 #pragma unroll
-  for (int j = 0; j < 6; ++j) gout[j * n + o] = G[j];
-  gout[6 * n + o] = g * acc;
+  for (int j = 0; j < 7; ++j) part[j][threadIdx.x] = G[j];
+  __syncthreads();
+  if (sl.part == 0 && live) {
+#pragma unroll
+    for (int j = 0; j < 6; ++j) gout[j * n + o] = sum_parts(part[j], split);
+    gout[6 * n + o] = g * sum_parts(part[6], split);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -439,24 +760,54 @@ __global__ void slab_siddon_kernel(const __nv_bfloat16* __restrict__ vol, int M,
 
 dim3 ray_grid(int B, int R) { return dim3((R + THREADS - 1) / THREADS, B); }
 
+// K5/K6 take window and lane extents below 2^22 (floor_exact) and volumes
+// below 2^31 voxels (tap).
+bool slab_fits(int M, int Wd, int L) {
+  return Wd < MAX_EXTENT && L < MAX_EXTENT && (long long)M * Wd * L < (1LL << 31);
+}
+
+dim3 split_grid(int B, int R, int split) {
+  const int rays = THREADS / split;
+  return dim3((R + rays - 1) / rays, B);
+}
+
 }  // namespace
 
 extern "C" {
 
 int slab_forward(const void* vol, int M, int Wd, int L, const void* fields, void* out, int B,
                  int R, void* stream) {
-  slab_forward_kernel<<<ray_grid(B, R), THREADS, 0, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)vol, M, Wd, L, (const float*)fields, (float*)out, B, R);
+  if (!slab_fits(M, Wd, L)) return (int)cudaErrorInvalidValue;
+  const int split = plane_split(B, R);
+  const dim3 grid = split_grid(B, R, split);
+  const auto v = (const __nv_bfloat16*)vol;
+  const auto f = (const float*)fields;
+  if (L > 1)
+    slab_forward_kernel<1><<<grid, THREADS, 0, (cudaStream_t)stream>>>(v, M, Wd, L, f, (float*)out,
+                                                                         B, R, split);
+  else
+    slab_forward_kernel<0><<<grid, THREADS, 0, (cudaStream_t)stream>>>(v, M, Wd, L, f, (float*)out,
+                                                                         B, R, split);
   return (int)cudaGetLastError();
 }
 
 int slab_backward(const void* vol, int M, int Wd, int L, const void* fields, const void* g,
                   void* gout, int B, int R, void* stream) {
-  slab_backward_kernel<<<ray_grid(B, R), THREADS, 0, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)vol, M, Wd, L, (const float*)fields, (const float*)g, (float*)gout,
-      B, R);
+  if (!slab_fits(M, Wd, L)) return (int)cudaErrorInvalidValue;
+  const int split = plane_split(B, R);
+  const dim3 grid = split_grid(B, R, split);
+  const auto v = (const __nv_bfloat16*)vol;
+  const auto f = (const float*)fields;
+  if (L > 1)
+    slab_backward_kernel<1><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+        v, M, Wd, L, f, (const float*)g, (float*)gout, B, R, split);
+  else
+    slab_backward_kernel<0><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+        v, M, Wd, L, f, (const float*)g, (float*)gout, B, R, split);
   return (int)cudaGetLastError();
 }
+
+int slab_plane_split(int B, int R) { return plane_split(B, R); }
 
 int slab_max_channels() { return MAX_CHANNELS; }
 

@@ -118,12 +118,13 @@ def _load():
     lib.sw_accumulate_adjoint.argtypes = [P, I, I, P, P, P, P, P, P, I, I, I, F, I, I, P]
     lib.slab_forward.argtypes = [P, I, I, I, P, P, I, I, P]
     lib.slab_backward.argtypes = [P, I, I, I, P, P, P, I, I, P]
+    lib.slab_plane_split.argtypes = [I, I]
     lib.slab_max_channels.argtypes = []
     lib.slab_channels.argtypes = [P, P, I, I, I, P, I, P, P, I, I, P]
     lib.slab_siddon.argtypes = [P, I, I, I, P, P, I, I, P]
     for fn in ("sw_accumulate", "sw_warp", "sw_warp_grads", "sw_adjoint_partials_shape",
-               "sw_accumulate_adjoint", "slab_forward", "slab_backward", "slab_max_channels",
-               "slab_channels", "slab_siddon"):
+               "sw_accumulate_adjoint", "slab_forward", "slab_backward", "slab_plane_split",
+               "slab_max_channels", "slab_channels", "slab_siddon"):
         getattr(lib, fn).restype = I
     _lib = lib
     return lib
@@ -238,6 +239,11 @@ def _slab_inputs(vol, fields):
     _check(vol, "vol", torch.bfloat16, (M, Wd, L), dev)
     _check(fields, "fields", torch.float32, (7, B, R), dev)
     return dev, M, Wd, L, B, R
+
+
+def slab_plane_split(B: int, R: int) -> int:
+    """Warps that share one ray's planes in K5/K6 for B x R rays."""
+    return _load().slab_plane_split(int(B), int(R))
 
 
 def slab_forward(vol, fields) -> torch.Tensor:
