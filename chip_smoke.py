@@ -20,11 +20,14 @@ Phases (each prints one or more lines; any failure exits non-zero):
 3. kernels   K1-K8 against their plain versions at each shape the
              registration renders (B=16 at 60^2, B=4 at 60^2, 120^2, 239^2):
              max error and tolerance, kernel / plain / library times (CUDA
-             events) and the bound; K1, K4, K5 and K6 also on steep and edge
-             geometry beyond the path's inputs, and eleven calls of each
-             bit-identical; K6 also against a finite difference of K5; then
-             each kernel's device time from torch.profiler at every shape,
-             and that of grid_sample, K2/K3's library yardstick
+             events) and the bound, and K2/K3's launch plan; K1-K6 also on
+             steep and edge geometry beyond the path's inputs (K2/K3: odd R,
+             a misaligned view, samples on the validity bounds, Iv = 2), and
+             eleven calls of each bit-identical; K6 also against a finite
+             difference of K5; then each kernel's device time from
+             torch.profiler at every shape, and that of grid_sample, K2/K3's
+             library yardstick, beside K2's and K3's each profiled alone as
+             grid_sample is
 4. slices    GT render; the shear-warp and slab registrations, each with the
              launch counts of its own run and its mTRE; the label and Siddon
              renders, each with its launch counts; each kernel's device time
@@ -340,10 +343,80 @@ EDGE_CASES = {
 }
 
 
+# K2/K3 inputs beyond the path's: label -> (B, Iu, Iv, R, misaligned). R is
+# odd (at B = 3, B R is no multiple of 2 or 4: the scalar tail of a plan of
+# two or four pixels per thread); a misaligned case reads its fields from
+# views one float past an aligned buffer (the scalar path)
+WARP_EDGE_CASES = {
+    "odd R, misaligned view": (3, 20, 33, 1001, True),
+    "odd R": (3, 20, 33, 1001, False),
+    "Iv = 2": (4, 16, 2, 999, False),
+}
+
+
+def warp_edge_inputs(B, Iu, Iv, R, misaligned=False, device="cuda", seed=6):
+    """A slope image (B, Iu, Iv) and fields uc, vc, ws (B, R), float32, from a
+    fixed seed. In every image, uc takes -1, 0, Iu - 1 and Iu, each exactly
+    and one float32 ulp either side, vc takes 0 and Iv - 1 (both with valid
+    uc and ws > 0), and some ws are 0; the other pixels spread over and past
+    the valid range. ``misaligned``: each field is a contiguous view that
+    starts one float past an aligned buffer."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    I = rng.uniform(-1.0, 1.0, (B, Iu, Iv)).astype(f32)
+    uc = rng.uniform(-2.0, Iu + 1.0, (B, R)).astype(f32)
+    vc = rng.uniform(-1.0, Iv, (B, R)).astype(f32)
+    ws = rng.uniform(-0.2, 2.0, (B, R)).astype(f32)
+    edge_u = []
+    for x in map(f32, (-1.0, 0.0, Iu - 1.0, Iu)):
+        edge_u += [np.nextafter(x, f32(-np.inf)), x, np.nextafter(x, f32(np.inf))]
+    n = min(R, len(edge_u))
+    uc[:, :n] = edge_u[:n]
+    m = min(R - n, 2)
+    uc[:, n:n + m] = rng.uniform(0.0, Iu - 1.0, (B, m))
+    vc[:, n:n + m] = np.array([0.0, Iv - 1.0], f32)[:m]
+    vc[:, :n] = rng.uniform(0.0, Iv - 1.0, (B, n))
+    ws[:, :n + m] = rng.uniform(0.5, 2.0, (B, n + m))
+    ws[:, n + m:n + m + 4] = 0.0
+
+    def field(a):
+        if not misaligned:
+            return torch.as_tensor(a, device=device)
+        buf = torch.empty(B * R + 1, dtype=torch.float32, device=device)
+        buf[1:] = torch.as_tensor(a.reshape(-1), device=device)
+        return buf[1:].view(B, R)
+
+    return torch.as_tensor(I, device=device), field(uc), field(vc), field(ws)
+
+
+def check_warps(I, uc, vc, ws, tag):
+    """K2 and K3 against their float64 plain versions (1e-5 max|ref|, and
+    1e-5 max|I| for K3's three outputs), with REPEATS more calls of each
+    bit-identical. -> (max abs error of K2, of K3)."""
+    import torch
+    from xvr_tpu_torch.render import shearwarp as sw
+
+    I64, w64 = I.double(), [a.double() for a in (uc, vc, ws)]
+    k2 = sw.warp(I, uc, vc, ws)
+    r2 = sw._warp_plain(I64, *w64, bf16=False)
+    e2 = check("K2 sw_warp", k2.double(), r2, tag, 1e-5 * float(r2.abs().max()))
+    k3 = sw.warp_with_grads(I, uc, vc, ws)
+    r3 = sw._warp_with_grads_plain(I64, *w64, bf16=False)
+    e3 = max(check(f"K3 sw_warp_grads[{o}]", a.double(), b, tag, 1e-5 * float(I64.abs().max()))
+             for o, (a, b) in enumerate(zip(k3, r3)))
+    same_bits("K2 sw_warp", k2, partial(sw.warp, I, uc, vc, ws), tag)
+    same_bits("K3 sw_warp_grads", torch.stack(k3),
+              lambda: torch.stack(sw.warp_with_grads(I, uc, vc, ws)), tag)
+    return e2, e3
+
+
 def phase_edge_kernels(bench_vol, seed=6):
-    """K1 and K4 on EDGE_CASES against their plain versions with the path's
-    tolerances (see phase_kernels), eleven calls bit-identical each. -> max abs
-    error per kernel."""
+    """K1 and K4 on EDGE_CASES, K2 and K3 on WARP_EDGE_CASES, against their
+    plain versions with the path's tolerances (see phase_kernels), eleven
+    calls bit-identical each. -> max abs error per kernel."""
     import numpy as np
     import torch
     from xvr_tpu_torch.render import _cuda
@@ -378,6 +451,12 @@ def phase_edge_kernels(bench_vol, seed=6):
                 "K4 sw_accumulate_adjoint", k4, r4, tag, 1e-4 * float(r4.abs().max()), 1e-3))
             same_bits("K4 sw_accumulate_adjoint", k4,
                       lambda: sw.accumulate_adjoint(vol, *args, ibar, **kw), tag)
+    errs.update(sw_warp=0.0, sw_warp_grads=0.0)
+    for label, (B, Iu, Iv, R, mis) in WARP_EDGE_CASES.items():
+        I, uc, vc, ws = warp_edge_inputs(B, Iu, Iv, R, mis, seed=seed)
+        tag = f"{label} B={B} grid {Iu}x{Iv} R={R}"
+        e2, e3 = check_warps(I, uc, vc, ws, tag)
+        errs["sw_warp"], errs["sw_warp_grads"] = max(errs["sw_warp"], e2), max(errs["sw_warp_grads"], e3)
     _cuda.reset_launches()
     return errs
 
@@ -446,14 +525,11 @@ def phase_kernels(projector, pose16, pose4, time_ms=cuda_time_ms):
             log(f"    vs JAX bf16 recipe: {float((k4 - sw._accumulate_adjoint(vol, *args, ibar, **kw)).abs().max()):.3e}")
             if eps != 1.0:
                 continue
-            I64, w64 = k1.double(), f64(*warp_args)
-            k2 = sw.warp(k1, *warp_args)
-            r2 = sw._warp_plain(I64, *w64, bf16=False)
-            e2 = check("K2 sw_warp", k2.double(), r2, tag, 1e-5 * float(r2.abs().max()))
-            k3 = sw.warp_with_grads(k1, *warp_args)
-            r3 = sw._warp_with_grads_plain(I64, *w64, bf16=False)
-            e3 = max(check(f"K3 sw_warp_grads[{o}]", a.double(), b, tag, 1e-5 * float(I64.abs().max()))
-                     for o, (a, b) in enumerate(zip(k3, r3)))
+            for name, grads in (("K2", False), ("K3", True)):
+                threads, pix = _cuda.warp_plan(B, R, grads, _cuda.sm_count(k1.device))
+                log(f"  {name} {tag}: plan {threads} threads x {pix} pixels per thread, "
+                    f"{-(-B * R // (threads * pix))} blocks")
+            e2, e3 = check_warps(k1, *warp_args, tag)
 
             # times at this shape (eps 1.0)
             reps = 20
@@ -1059,14 +1135,19 @@ def main() -> int:
     edge_errs.update(phase_edge_slab())
     slab_records, slab_calls = phase_slab_kernels(slab_proj, pose16, pose4, vol.mask)
     records.update(slab_records)
-    # device time of every kernel at both shapes (coarse, fine)
+    # device time of every kernel at each shape; grid_sample, K2 and K3 also
+    # each profiled alone, so that K2/K3 and their library call compare alike
+    fmt = lambda ms: "not measured" if ms is None else f"{ms:.4f} ms"  # noqa: E731
     for idx, calls in enumerate(zip(sw_calls, slab_calls)):
         lib, lib_names = library_device_ms(calls[0].pop("grid_sample"))
         for name in ("sw_warp", "sw_warp_grads"):
             records[name][idx]["library_profiler_ms"] = lib
+            records[name][idx]["alone_profiler_ms"] = library_device_ms(calls[0][name])[0]
         log(f"  profiler grid_sample (K2/K3's library call) [{records['sw_warp'][idx]['shape']}]: "
-            f"device {'not measured' if lib is None else f'{lib:.4f} ms'} per call over "
-            f"{lib_names}, CUDA events {records['sw_warp'][idx]['library_ms']:.4f} ms")
+            f"device {fmt(lib)} per call over {lib_names}, CUDA events "
+            f"{records['sw_warp'][idx]['library_ms']:.4f} ms; profiled alone as it is, K2 "
+            f"{fmt(records['sw_warp'][idx]['alone_profiler_ms'])}, K3 "
+            f"{fmt(records['sw_warp_grads'][idx]['alone_profiler_ms'])}")
         prof = profiler_ms({**calls[0], **calls[1]})
         for name, ms in prof.items():
             records[name][idx]["profiler_ms"] = ms
@@ -1103,8 +1184,10 @@ def main() -> int:
         rec["gap_ms_per_registration"] = gaps[name][0]
         rec["coarse"] = {k: recs[0].get(k) for k in ("shape", "ms", "profiler_ms", "bound_ms",
                                                      "plain_ms", "library_ms",
-                                                     "library_profiler_ms")}
-        rec["stages"] = [{k: r.get(k) for k in ("shape", "ms", "profiler_ms", "bound_ms")}
+                                                     "library_profiler_ms", "alone_profiler_ms")}
+        rec["stages"] = [{k: r.get(k) for k in ("shape", "ms", "profiler_ms", "bound_ms",
+                                                "library_ms", "library_profiler_ms",
+                                                "alone_profiler_ms")}
                          for r in recs]
         kernels.append(rec)
     log(f"total: {time.perf_counter() - t_start:.1f} s")

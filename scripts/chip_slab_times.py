@@ -55,21 +55,24 @@ def variant_source(text: str, overrides: dict) -> str:
     for name, value in overrides.items():
         text, n = re.subn(rf"(constexpr\s+\w+\s+{name}\s*=\s*)[^;]+;", rf"\g<1>{value};", text)
         if n != 1:
-            raise SystemExit(f"--variant: slab.cu has no constant {name}")
+            raise SystemExit(f"--variant: the source has no constant {name}")
     return text
 
 
-def build(sources: dict, out_dir: Path, cuda) -> dict:
-    """One nvcc per source, all started together -> name -> (library, the
-    compiler's register report)."""
+def build(sources: dict, out_dir: Path, cuda, source: str = SLAB.name,
+          entries=("slab_forward_kernel", "slab_backward_kernel")) -> dict:
+    """One nvcc per source text of the kernel file ``source``, all started
+    together -> name -> (library, the compiler's register report for the
+    device kernels whose names contain one of ``entries``)."""
     out_dir.mkdir(parents=True, exist_ok=True)
+    stem = Path(source).stem
     procs = {}
     for i, (name, text) in enumerate(sources.items()):
-        src = out_dir / f"slab_{i}.cu"
+        src = out_dir / f"{stem}_{i}.cu"
         src.write_text(text)
-        lib = out_dir / f"libslab_{i}.so"
+        lib = out_dir / f"lib{stem}_{i}.so"
         cmd = [cuda._nvcc(), "-Xptxas", "-v", *cuda.ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler",
-               "-fPIC", *cuda.SOURCE_FLAGS["slab.cu"], "-shared", "-o", str(lib), str(src)]
+               "-fPIC", *cuda.SOURCE_FLAGS.get(source, ()), "-shared", "-o", str(lib), str(src)]
         procs[name] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                              text=True))
     built = {}
@@ -81,10 +84,10 @@ def build(sources: dict, out_dir: Path, cuda) -> dict:
         for line in text.splitlines():
             m = re.search(r"Compiling entry function '(\w+)'", line)
             if m:
-                entry = next((k for k in ("slab_forward_kernel", "slab_backward_kernel")
-                              if k in m.group(1)), None)
+                entry = m.group(1) if any(k in m.group(1) for k in entries) else None
             elif entry and ("registers" in line or "spill" in line):
-                report.append(f"{entry}: {line.split('info    :')[-1].strip()}")
+                short = next(k for k in entries if k in entry)
+                report.append(f"{short} ({entry}): {line.split('info    :')[-1].strip()}")
         built[name] = (lib, report)
     return built
 

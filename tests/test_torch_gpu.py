@@ -123,15 +123,27 @@ def test_tiled_kernels_steep_and_edge(cuda, case, eps):
     assert torch.equal(g, sw.accumulate_adjoint(vol, *args, ibar, **kw))
 
 
-def test_warp_kernels_match_plain(cuda):
+@pytest.mark.parametrize("R,misaligned", [(500, False), (501, False), (501, True)])
+def test_warp_kernels_match_plain(cuda, R, misaligned):
+    """K2 and K3 against their float64 plain versions: R = 500 (the vector
+    path), odd R (the scalar tail) and fields in views one float past an
+    aligned buffer (the scalar path)."""
     from xvr_tpu_torch.render import shearwarp as sw
 
     g = torch.Generator(cuda).manual_seed(3)
-    B, Iu, Iv, R = 3, 32, 48, 500
+    B, Iu, Iv = 3, 32, 48
     I = torch.rand((B, Iu, Iv), generator=g, device=cuda)
-    uc = torch.rand((B, R), generator=g, device=cuda) * (Iu + 3) - 2
-    vc = torch.rand((B, R), generator=g, device=cuda) * (Iv + 2) - 1.5
-    ws = torch.rand((B, R), generator=g, device=cuda) * 2.2 - 0.2
+
+    def field(x):
+        if not misaligned:
+            return x
+        buf = torch.empty(B * R + 1, device=cuda)
+        buf[1:] = x.reshape(-1)
+        return buf[1:].view(B, R)
+
+    uc = field(torch.rand((B, R), generator=g, device=cuda) * (Iu + 3) - 2)
+    vc = field(torch.rand((B, R), generator=g, device=cuda) * (Iv + 2) - 1.5)
+    ws = field(torch.rand((B, R), generator=g, device=cuda) * 2.2 - 0.2)
     d = lambda *xs: [x.double() for x in xs]  # noqa: E731
     ref = sw._warp_plain(*d(I, uc, vc, ws), bf16=False)
     torch.testing.assert_close(sw.warp(I, uc, vc, ws).double(), ref, rtol=0,
@@ -139,6 +151,59 @@ def test_warp_kernels_match_plain(cuda):
     for got, r in zip(sw.warp_with_grads(I, uc, vc, ws),
                       sw._warp_with_grads_plain(*d(I, uc, vc, ws), bf16=False)):
         torch.testing.assert_close(got.double(), r, rtol=0, atol=1e-5)
+
+
+WARP_EDGE = ["odd R, misaligned view", "odd R", "Iv = 2"]
+
+
+@pytest.mark.parametrize("case", WARP_EDGE)
+def test_warp_kernels_edge_cases(cuda, case):
+    """K2 and K3 on chip_smoke.py's edge cases (samples on the validity
+    bounds and one ulp either side, ws = 0, odd R, a misaligned view,
+    Iv = 2) against their float64 plain versions; two calls give identical
+    bits."""
+    from xvr_tpu_torch.render import shearwarp as sw
+
+    smoke = _smoke()
+    assert sorted(WARP_EDGE) == sorted(smoke.WARP_EDGE_CASES)
+    I, uc, vc, ws = smoke.warp_edge_inputs(*smoke.WARP_EDGE_CASES[case], device=cuda)
+    I64, w64 = I.double(), [a.double() for a in (uc, vc, ws)]
+    ref = sw._warp_plain(I64, *w64, bf16=False)
+    got = sw.warp(I, uc, vc, ws)
+    torch.testing.assert_close(got.double(), ref, rtol=0, atol=1e-5 * float(ref.abs().max()))
+    assert torch.equal(got, sw.warp(I, uc, vc, ws))
+    got = sw.warp_with_grads(I, uc, vc, ws)
+    for a, r in zip(got, sw._warp_with_grads_plain(I64, *w64, bf16=False)):
+        torch.testing.assert_close(a.double(), r, rtol=0, atol=1e-5 * float(I64.abs().max()))
+    assert all(torch.equal(a, b) for a, b in zip(got, sw.warp_with_grads(I, uc, vc, ws)))
+
+
+def test_warp_plans_give_identical_bits(cuda):
+    """Every launch plan the kernels take (threads x pixels per thread) gives
+    the bits of the plan that warp_plan picks, K3's outputs in one buffer or
+    in three."""
+    from xvr_tpu_torch.render import _cuda
+
+    smoke = _smoke()
+    lib = _cuda._load()
+    for case in ("odd R", "Iv = 2"):
+        B, Iu, Iv, R, _ = smoke.WARP_EDGE_CASES[case]
+        I, uc, vc, ws = smoke.warp_edge_inputs(B, Iu, Iv, R, device=cuda)
+        k2, k3 = _cuda.warp(I, uc, vc, ws), torch.stack(_cuda.warp_with_grads(I, uc, vc, ws))
+        stream = torch.cuda.current_stream().cuda_stream
+        for pix in (1, 2, 4):
+            for threads in (64, 128, 256):
+                out = torch.empty_like(k2)
+                assert lib.sw_warp(I.data_ptr(), uc.data_ptr(), vc.data_ptr(), ws.data_ptr(),
+                                   out.data_ptr(), B, Iu, Iv, R, threads, pix, stream) == 0
+                outs = [torch.empty_like(k2) for _ in range(3)]
+                assert lib.sw_warp_grads(I.data_ptr(), uc.data_ptr(), vc.data_ptr(), ws.data_ptr(),
+                                         *(o.data_ptr() for o in outs), B, Iu, Iv, R, threads,
+                                         pix, stream) == 0
+                assert torch.equal(out, k2) and torch.equal(torch.stack(outs), k3), (threads, pix)
+    bad = lib.sw_warp(I.data_ptr(), uc.data_ptr(), vc.data_ptr(), ws.data_ptr(), k2.data_ptr(),
+                      B, Iu, Iv, R, 128, 3, stream)
+    assert bad != 0  # three pixels per thread is refused
 
 
 def test_fast_render_launches_every_kernel(cuda):

@@ -13,7 +13,7 @@ import pytest
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "xvr_tpu_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "scripts" / "chip_mtre_spread.py",
-    REPO / "scripts" / "chip_slab_times.py"]
+    REPO / "scripts" / "chip_slab_times.py", REPO / "scripts" / "chip_warp_times.py"]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "xvr_tpu")
 
 

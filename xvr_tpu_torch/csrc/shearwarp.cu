@@ -36,6 +36,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 namespace {
@@ -478,6 +479,9 @@ __global__ void __launch_bounds__(Cfg<false>::NB, Cfg<false>::MINB)
     const int i = blockIdx.y * TI + ty + C::NTY * q;
     if (i < Iu && j < Iv) out[((size_t)b * Iu + i) * Iv + j] = acc.a[q];
   }
+  // lets K2 launch once every block is here; K2 waits for this grid's
+  // completion before it reads anything
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
 }
 
 // ---------------------------------------------------------------------------
@@ -579,78 +583,242 @@ __global__ void sw_sum_partials_kernel(const double* __restrict__ part, float* _
 // {floor(uc), floor(uc) + 1} inside [0, Iu) carry the tent weight
 // max(1 - |uc - z|, 0); the lane index is clipped to [0, Iv - 2] and its
 // fraction to [0, 1], as in the TPU kernel.
-// Bound on the H100: bytes. Each pixel reads 3 (K2) f32 fields and 4 image
-// values and writes 1 (K3: 3) f32; one thread per pixel with consecutive
-// pixels on consecutive threads keeps the field reads and the writes
-// coalesced, and the image (<= 1 MB per pose) stays in L2.
+//
+// Bound on the H100: bytes. Each pixel reads 3 f32 fields and 4 image values
+// and writes 1 (K3: 3) f32; the image (<= 1 MB per pose) stays in L2. At the
+// registration's shapes (14,400 to 228,484 pixels) that is 0.2-1.4 us, about
+// what one launch and one chain of dependent loads take, so the kernels are
+// latency- and launch-bound: what counts is how many loads each thread has
+// in flight and that every SM has blocks.
+//
+// Design. K2 and K3 share one body, warp_pixels<GRADS, P>. The (B, R) fields
+// are walked flat: thread t owns the P consecutive pixels [tP, tP + P) of the
+// B R, which may straddle images. It reads each field by one P-wide vector
+// load (float4 for P = 4) when every field and output pointer is 4P-byte
+// aligned, computes every pixel's taps, issues all 4P gathers, then finishes
+// each pixel with the first version's arithmetic, in the same order (so the
+// bits do not change), and stores by vector. Pixels of the last thread that
+// run past B R, and every pixel of a call with a misaligned pointer, take
+// scalar loads and stores. The launch plan (threads per block, P) is the
+// caller's (render/_cuda.py warp_plan, tested on the CPU): one pixel per
+// thread, in blocks small enough that every SM has one, up to the 57,600
+// pixels of the coarse sweep; P = 2 (K2) or 4 (K3) at the fine stage.
+//
+// K2 is launched as a programmatic dependent of the kernel before it: K1
+// triggers after its last store, so K2's launch overlaps K1's tail; K2 waits
+// for the previous grid's completion before it reads anything, so it is right
+// after any kernel. (Staging each block's box of the slope image in shared
+// memory, as the TPU kernel's windowed gather does, ran 1.7-2.7x slower:
+// PERF.md §6.)
 // ---------------------------------------------------------------------------
-__device__ __forceinline__ void warp_sample(const float* __restrict__ Ib, int Iu, int Iv, float u,
-                                            float v, float* val, float* dval_du,
-                                            float* dval_dv) {
-  int idx = (int)v;  // v >= 0 here, so truncation is floor
-  const int idx_max = Iv > 1 ? Iv - 2 : 0;
-  idx = min(max(idx, 0), idx_max);
-  const int idx_hi = min(idx + 1, Iv - 1);
-  const float fx = fminf(fmaxf(v - (float)idx, 0.0f), 1.0f);
-  const float zf = floorf(u);
-  const int z0 = (int)zf;
-  float acc = 0.0f, dua = 0.0f, dva = 0.0f;
-#pragma unroll
-  for (int d = 0; d < 2; ++d) {
-    const int z = z0 + d;
-    if (z < 0 || z >= Iu) continue;
-    const float diff = u - (float)z;
-    const float wz = fmaxf(1.0f - fabsf(diff), 0.0f);
-    const float dz = (fabsf(diff) < 1.0f) ? ((diff > 0.0f) ? -1.0f : ((diff < 0.0f) ? 1.0f : 0.0f)) : 0.0f;
-    const float lo = Ib[(size_t)z * Iv + idx];
-    const float hi = Ib[(size_t)z * Iv + idx_hi];
-    const float val_z = lo + fx * (hi - lo);
-    acc += wz * val_z;
-    dua += dz * val_z;
-    dva += wz * (hi - lo);
-  }
-  *val = acc;
-  if (dval_du) *dval_du = dua;
-  if (dval_dv) *dval_dv = dva;
-}
-
 __device__ __forceinline__ bool warp_valid(float u, float v, float w, int Iu, int Iv) {
   return (u > -1.0f) && (u < (float)Iu) && (v >= 0.0f) && (v <= (float)(Iv - 1)) && (w > 0.0f);
 }
 
-__global__ void sw_warp_kernel(const float* __restrict__ I, const float* __restrict__ uc,
-                               const float* __restrict__ vc, const float* __restrict__ ws,
-                               float* __restrict__ out, int Iu, int Iv, int R) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  const int b = blockIdx.y;
-  if (r >= R) return;
-  const size_t o = (size_t)b * R + r;
-  const float u = uc[o], v = vc[o], w = ws[o];
-  float res = 0.0f;
-  if (warp_valid(u, v, w, Iu, Iv)) {
-    float val;
-    warp_sample(I + (size_t)b * Iu * Iv, Iu, Iv, u, v, &val, nullptr, nullptr);
-    res = val * w;
+// P consecutive fields by one vector load (read-only path)
+template <int P>
+__device__ __forceinline__ void load_pixels(const float* __restrict__ p, float (&x)[P]) {
+  if constexpr (P == 4) {
+    const float4 t = __ldg(reinterpret_cast<const float4*>(p));
+    x[0] = t.x;
+    x[1] = t.y;
+    x[2] = t.z;
+    x[3] = t.w;
+  } else if constexpr (P == 2) {
+    const float2 t = __ldg(reinterpret_cast<const float2*>(p));
+    x[0] = t.x;
+    x[1] = t.y;
+  } else {
+    x[0] = __ldg(p);
   }
-  out[o] = res;
 }
 
-__global__ void sw_warp_grads_kernel(const float* __restrict__ I, const float* __restrict__ uc,
-                                     const float* __restrict__ vc, const float* __restrict__ ws,
-                                     float* __restrict__ out, float* __restrict__ dout_du,
-                                     float* __restrict__ dout_dv, int Iu, int Iv, int R) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  const int b = blockIdx.y;
-  if (r >= R) return;
-  const size_t o = (size_t)b * R + r;
-  const float u = uc[o], v = vc[o], w = ws[o];
-  float val = 0.0f, du = 0.0f, dv = 0.0f;
-  if (warp_valid(u, v, w, Iu, Iv)) {
-    warp_sample(I + (size_t)b * Iu * Iv, Iu, Iv, u, v, &val, &du, &dv);
+template <int P>
+__device__ __forceinline__ void store_pixels(float* __restrict__ p, const float (&x)[P]) {
+  if constexpr (P == 4)
+    *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
+  else if constexpr (P == 2)
+    *reinterpret_cast<float2*>(p) = make_float2(x[0], x[1]);
+  else
+    *p = x[0];
+}
+
+// One pixel's taps: its lane fraction, rows z0 and z0 + 1, lane idx and the
+// step to its second lane (0 or 1), and which rows lie in [0, Iu).
+struct WarpTap {
+  float fx;
+  int z0, idx, step;
+  bool ok, in0, in1;
+};
+
+__device__ __forceinline__ WarpTap warp_tap(float u, float v, float w, int Iu, int Iv) {
+  WarpTap t;
+  t.ok = warp_valid(u, v, w, Iu, Iv);
+  int idx = t.ok ? (int)v : 0;  // v >= 0 here, so truncation is floor
+  const int idx_max = Iv > 1 ? Iv - 2 : 0;
+  idx = min(max(idx, 0), idx_max);
+  t.idx = idx;
+  t.step = min(idx + 1, Iv - 1) - idx;
+  t.fx = fminf(fmaxf(v - (float)idx, 0.0f), 1.0f);
+  t.z0 = t.ok ? (int)floorf(u) : 0;
+  t.in0 = t.ok && t.z0 >= 0 && t.z0 < Iu;
+  t.in1 = t.ok && t.z0 + 1 >= 0 && t.z0 + 1 < Iu;
+  return t;
+}
+
+// The first version's per-pixel arithmetic on gathered values: rows z0 + d
+// in [0, Iu) add their tent-weighted lane interpolation (and K3's partials).
+__device__ __forceinline__ void warp_finish(const WarpTap& t, float u, const float (&lo)[2],
+                                            const float (&hi)[2], float* val, float* dval_du,
+                                            float* dval_dv) {
+  const bool in[2] = {t.in0, t.in1};
+  float acc = 0.0f, dua = 0.0f, dva = 0.0f;
+#pragma unroll
+  for (int d = 0; d < 2; ++d) {
+    if (!in[d]) continue;
+    const int z = t.z0 + d;
+    const float diff = u - (float)z;
+    const float wz = fmaxf(1.0f - fabsf(diff), 0.0f);
+    const float dz = (fabsf(diff) < 1.0f) ? ((diff > 0.0f) ? -1.0f : ((diff < 0.0f) ? 1.0f : 0.0f)) : 0.0f;
+    const float val_z = lo[d] + t.fx * (hi[d] - lo[d]);
+    acc += wz * val_z;
+    dua += dz * val_z;
+    dva += wz * (hi[d] - lo[d]);
   }
-  out[o] = val;
-  dout_du[o] = du;
-  dout_dv[o] = dv;
+  *val = acc;
+  *dval_du = dua;
+  *dval_dv = dva;
+}
+
+// K2 (GRADS false): out0 = bilerp * ws. K3: out0, out1, out2 = bilerp and its
+// partials in uc and vc (ws only masks). Thread t: pixels [tP, tP + P) of N.
+template <bool GRADS, int P>
+__device__ __forceinline__ void warp_pixels(const float* __restrict__ I, const float* __restrict__ uc,
+                                            const float* __restrict__ vc, const float* __restrict__ ws,
+                                            float* __restrict__ out0, float* __restrict__ out1,
+                                            float* __restrict__ out2, int Iu, int Iv, int R, int N,
+                                            bool vec) {
+  if constexpr (!GRADS) asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  const int o0 = (blockIdx.x * blockDim.x + threadIdx.x) * P;
+  const bool full = vec && o0 + P <= N;
+  float u[P], v[P], w[P];
+  if (full) {
+    load_pixels<P>(uc + o0, u);
+    load_pixels<P>(vc + o0, v);
+    load_pixels<P>(ws + o0, w);
+  } else {  // the tail, or a misaligned call; pixels past N are invalid (ws 0)
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      const bool in = o0 + p < N;
+      u[p] = in ? __ldg(uc + o0 + p) : 0.0f;
+      v[p] = in ? __ldg(vc + o0 + p) : 0.0f;
+      w[p] = in ? __ldg(ws + o0 + p) : 0.0f;
+    }
+  }
+  // every pixel's taps and its image's offset (one more image each time the
+  // pixel index passes an image's end: R >= 1)
+  WarpTap t[P];
+  int base[P];
+  int b = o0 / R, b_end = (b + 1) * R;
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    if (o0 + p >= b_end) {
+      ++b;
+      b_end += R;
+    }
+    t[p] = warp_tap(u[p], v[p], w[p], Iu, Iv);
+    base[p] = b * Iu * Iv;
+  }
+  // all 4P gathers before any use
+  float lo[P][2], hi[P][2];
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    const float* r0 = I + base[p] + t[p].z0 * Iv + t[p].idx;
+    const float* r1 = r0 + Iv;
+    lo[p][0] = t[p].in0 ? __ldg(r0) : 0.0f;
+    hi[p][0] = t[p].in0 ? __ldg(r0 + t[p].step) : 0.0f;
+    lo[p][1] = t[p].in1 ? __ldg(r1) : 0.0f;
+    hi[p][1] = t[p].in1 ? __ldg(r1 + t[p].step) : 0.0f;
+  }
+  float r0[P], r1[P], r2[P];
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    warp_finish(t[p], u[p], lo[p], hi[p], &r0[p], &r1[p], &r2[p]);
+    if (!GRADS) r0[p] = t[p].ok ? r0[p] * w[p] : 0.0f;
+  }
+  if (full) {
+    store_pixels<P>(out0 + o0, r0);
+    if (GRADS) {
+      store_pixels<P>(out1 + o0, r1);
+      store_pixels<P>(out2 + o0, r2);
+    }
+  } else {
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      if (o0 + p >= N) continue;
+      out0[o0 + p] = r0[p];
+      if (GRADS) {
+        out1[o0 + p] = r1[p];
+        out2[o0 + p] = r2[p];
+      }
+    }
+  }
+}
+
+template <int P>
+__global__ void __launch_bounds__(256)
+    sw_warp_kernel(const float* __restrict__ I, const float* __restrict__ uc,
+                   const float* __restrict__ vc, const float* __restrict__ ws,
+                   float* __restrict__ out, int Iu, int Iv, int R, int N, bool vec) {
+  warp_pixels<false, P>(I, uc, vc, ws, out, nullptr, nullptr, Iu, Iv, R, N, vec);
+}
+
+template <int P>
+__global__ void __launch_bounds__(256)
+    sw_warp_grads_kernel(const float* __restrict__ I, const float* __restrict__ uc,
+                         const float* __restrict__ vc, const float* __restrict__ ws,
+                         float* __restrict__ out, float* __restrict__ dout_du,
+                         float* __restrict__ dout_dv, int Iu, int Iv, int R, int N, bool vec) {
+  warp_pixels<true, P>(I, uc, vc, ws, out, dout_du, dout_dv, Iu, Iv, R, N, vec);
+}
+
+bool aligned(const void* p, int bytes) { return (uintptr_t)p % bytes == 0; }
+
+// Launch K2 (GRADS false) or K3 on `threads` x P pixels per block; K2 as a
+// programmatic dependent of the previous kernel.
+template <bool GRADS>
+int launch_warp(const void* I, const void* uc, const void* vc, const void* ws, void* out,
+                void* dout_du, void* dout_dv, int B, int Iu, int Iv, int R, int threads, int P,
+                void* stream) {
+  const long long N = (long long)B * R, per_block = (long long)threads * P;
+  if ((P != 1 && P != 2 && P != 4) || threads < 32 || threads > 256 || threads % 32 != 0 ||
+      B < 1 || R < 1 || Iu < 1 || Iv < 1 || N + per_block > INT_MAX ||
+      (long long)(B + P) * R > INT_MAX || (long long)(B + P) * Iu * Iv > INT_MAX)
+    return (int)cudaErrorInvalidValue;
+  const int a = 4 * P;
+  const bool vec = aligned(uc, a) && aligned(vc, a) && aligned(ws, a) && aligned(out, a) &&
+                   (!GRADS || (aligned(dout_du, a) && aligned(dout_dv, a)));
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)((N + per_block - 1) / per_block));
+  cfg.blockDim = dim3(threads);
+  cfg.stream = (cudaStream_t)stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = GRADS ? 0 : 1;
+  const float *i_ = (const float*)I, *u_ = (const float*)uc, *v_ = (const float*)vc,
+              *w_ = (const float*)ws;
+  float *o_ = (float*)out, *du_ = (float*)dout_du, *dv_ = (float*)dout_dv;
+  const int n = (int)N;
+  if constexpr (GRADS) {
+    auto k = P == 4 ? sw_warp_grads_kernel<4> : P == 2 ? sw_warp_grads_kernel<2> : sw_warp_grads_kernel<1>;
+    cudaLaunchKernelEx(&cfg, k, i_, u_, v_, w_, o_, du_, dv_, Iu, Iv, R, n, vec);
+  } else {
+    auto k = P == 4 ? sw_warp_kernel<4> : P == 2 ? sw_warp_kernel<2> : sw_warp_kernel<1>;
+    cudaLaunchKernelEx(&cfg, k, i_, u_, v_, w_, o_, Iu, Iv, R, n, vec);
+  }
+  return (int)cudaGetLastError();
 }
 
 bool pairs_ok(const void* vol, int L) { return L % 2 == 0 && (uintptr_t)vol % 4 == 0; }
@@ -671,24 +839,18 @@ int sw_accumulate(const void* vol, int Wd, int L, const void* params, void* out,
   return (int)cudaGetLastError();
 }
 
+// K2 and K3 with the launch plan of render/_cuda.py warp_plan: `threads` per
+// block, P (1, 2 or 4) pixels per thread; dout_du and dout_dv may be views of
+// one (3, B, R) buffer with out.
 int sw_warp(const void* I, const void* uc, const void* vc, const void* ws, void* out, int B, int Iu,
-            int Iv, int R, void* stream) {
-  dim3 block(256);
-  dim3 grid((R + 255) / 256, B);
-  sw_warp_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      (const float*)I, (const float*)uc, (const float*)vc, (const float*)ws, (float*)out, Iu, Iv,
-      R);
-  return (int)cudaGetLastError();
+            int Iv, int R, int threads, int P, void* stream) {
+  return launch_warp<false>(I, uc, vc, ws, out, nullptr, nullptr, B, Iu, Iv, R, threads, P, stream);
 }
 
 int sw_warp_grads(const void* I, const void* uc, const void* vc, const void* ws, void* out,
-                  void* dout_du, void* dout_dv, int B, int Iu, int Iv, int R, void* stream) {
-  dim3 block(256);
-  dim3 grid((R + 255) / 256, B);
-  sw_warp_grads_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      (const float*)I, (const float*)uc, (const float*)vc, (const float*)ws, (float*)out,
-      (float*)dout_du, (float*)dout_dv, Iu, Iv, R);
-  return (int)cudaGetLastError();
+                  void* dout_du, void* dout_dv, int B, int Iu, int Iv, int R, int threads, int P,
+                  void* stream) {
+  return launch_warp<true>(I, uc, vc, ws, out, dout_du, dout_dv, B, Iu, Iv, R, threads, P, stream);
 }
 
 // Partials scratch (float64): part_gw (B, Iu, ceil(Iv/TJ)), part_gl (B, Iv, ceil(Iu/TI)).

@@ -18,6 +18,7 @@ raises if the library reports a CUDA error, and adds one to its entry in
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -112,8 +113,8 @@ def _load():
     lib = ctypes.CDLL(str(build()))
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.sw_accumulate.argtypes = [P, I, I, P, P, I, I, I, F, I, I, P]
-    lib.sw_warp.argtypes = [P, P, P, P, P, I, I, I, I, P]
-    lib.sw_warp_grads.argtypes = [P, P, P, P, P, P, P, I, I, I, I, P]
+    lib.sw_warp.argtypes = [P, P, P, P, P, I, I, I, I, I, I, P]
+    lib.sw_warp_grads.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, I, P]
     lib.sw_adjoint_partials_shape.argtypes = [I, I, ctypes.POINTER(I), ctypes.POINTER(I)]
     lib.sw_accumulate_adjoint.argtypes = [P, I, I, P, P, P, P, P, P, I, I, I, F, I, I, P]
     lib.slab_forward.argtypes = [P, I, I, I, P, P, I, I, P]
@@ -179,6 +180,31 @@ def _warp_inputs(I, uc, vc, ws):
     return dev, B, Iu, Iv, R
 
 
+# K2/K3 launch plan (its times on the H100: PERF.md §6): P, the pixels per
+# thread, grows while the grid keeps WARP_THREADS_PER_SM[grads] threads on
+# each of the card's SMs (K3, with three stores per pixel, gains from wider
+# vectors sooner than K2); then the largest block that still gives every SM
+# a block
+WARP_SMS = 132  # SMs of an H100 SXM, the default count
+WARP_THREADS_PER_SM = {False: 768, True: 384}
+
+
+@functools.lru_cache(maxsize=None)
+def warp_plan(B: int, R: int, grads: bool = False, sms: int = WARP_SMS) -> tuple[int, int]:
+    """(threads per block, pixels per thread) of K2 (``grads`` False) or K3
+    for B x R pixels on a card of ``sms`` SMs."""
+    n = B * R
+    pixels = next((p for p in (4, 2) if n // p >= WARP_THREADS_PER_SM[grads] * sms), 1)
+    threads = next((t for t in (256, 128) if -(-n // (t * pixels)) >= sms), 64)
+    return threads, pixels
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device) -> int:
+    """SMs of the CUDA ``device``."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def warp(I, uc, vc, ws) -> torch.Tensor:
     """K2. Slope image ``I`` (B, Iu, Iv) f32 sampled at (uc, vc) (B, R),
     times ``ws`` -> (B, R) f32."""
@@ -186,22 +212,24 @@ def warp(I, uc, vc, ws) -> torch.Tensor:
     dev, B, Iu, Iv, R = _warp_inputs(I, uc, vc, ws)
     out = torch.empty((B, R), dtype=torch.float32, device=dev)
     err = lib.sw_warp(I.data_ptr(), uc.data_ptr(), vc.data_ptr(), ws.data_ptr(), out.data_ptr(),
-                      B, Iu, Iv, R, _stream(dev))
+                      B, Iu, Iv, R, *warp_plan(B, R, False, sm_count(dev)), _stream(dev))
     _raise_on(err, "sw_warp")
     LAUNCHES["sw_warp"] += 1
     return out
 
 
 def warp_with_grads(I, uc, vc, ws):
-    """K3. (bilerp, d/duc, d/dvc), each (B, R) f32; ``ws`` only masks."""
+    """K3. (bilerp, d/duc, d/dvc), each (B, R) f32, views of one (3, B, R)
+    buffer; ``ws`` only masks."""
     lib = _load()
     dev, B, Iu, Iv, R = _warp_inputs(I, uc, vc, ws)
-    outs = [torch.empty((B, R), dtype=torch.float32, device=dev) for _ in range(3)]
+    out = torch.empty((3, B, R), dtype=torch.float32, device=dev)
     err = lib.sw_warp_grads(I.data_ptr(), uc.data_ptr(), vc.data_ptr(), ws.data_ptr(),
-                            *(o.data_ptr() for o in outs), B, Iu, Iv, R, _stream(dev))
+                            *(o.data_ptr() for o in out), B, Iu, Iv, R,
+                            *warp_plan(B, R, True, sm_count(dev)), _stream(dev))
     _raise_on(err, "sw_warp_grads")
     LAUNCHES["sw_warp_grads"] += 1
-    return tuple(outs)
+    return tuple(out)
 
 
 def accumulate_adjoint(vol, params, ibar, *, eps: float, k0: int, k1: int):
