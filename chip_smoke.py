@@ -20,18 +20,22 @@ Phases (each prints one or more lines; any failure exits non-zero):
 3. kernels   K1-K8 against their plain versions at each shape the
              registration renders (B=16 at 60^2, B=4 at 60^2, 120^2, 239^2):
              max error and tolerance, kernel / plain / library times (CUDA
-             events) and the bound, and K2/K3's launch plan; K1-K6 also on
-             steep and edge geometry beyond the path's inputs (K2/K3: odd R,
-             a misaligned view, samples on the validity bounds, Iv = 2), and
-             eleven calls of each bit-identical; K6 also against a finite
-             difference of K5; then each kernel's device time from
-             torch.profiler at every shape, and that of grid_sample, K2/K3's
-             library yardstick, beside K2's and K3's each profiled alone as
-             grid_sample is
+             events) and the bound (K7/K8 also under their full-plane
+             operation count), and K2/K3's launch plan; K1-K8 also on steep
+             and edge geometry beyond the path's inputs (K2/K3: odd R, a
+             misaligned view, samples on the validity bounds, Iv = 2; K7
+             with a channel list that holds label 255), and eleven calls of
+             each bit-identical; K6 also against a finite difference of K5;
+             K7 and K8 at the trainer's shape (B=116 poses at 128^2), checked
+             on 8 images and timed on all; then each kernel's device time
+             from torch.profiler at every shape, and that of grid_sample,
+             K2/K3's library yardstick, beside K2's and K3's each profiled
+             alone as grid_sample is
 4. slices    GT render; the shear-warp and slab registrations, each with the
              launch counts of its own run and its mTRE; the label and Siddon
-             renders, each with its launch counts; each kernel's device time
-             above its bound per registration, stage by stage
+             renders, each with its launch counts (and pack_labels' time per
+             label render beside K7's); each kernel's device time above its
+             bound per registration, stage by stage
 
 The line before the last is one JSON object with a record per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -78,9 +82,13 @@ DEVICE_KERNELS = {
 }
 # f32 operations per evaluated (ray, plane) pair, counted from slab.cu:
 # arithmetic, min/max, abs, floor and rint, a fused multiply-add as 2;
-# compares, selects, conversions and loads not counted. K5 and K6 count their
-# lean plane, which nearly every pair takes
-SLAB_OPS = {"slab_forward": 21, "slab_backward": 53, "slab_channels": 40, "slab_siddon": 48}
+# compares, selects, conversions and loads not counted. Each kernel counts
+# its lean plane, which nearly every pair takes (K7: K5's 21 and two rint;
+# K8: slab ends 6, their eps-inward copies 2, positions 8, rints 4, crossings 8, clamps 6, lengths 3,
+# sums 8, the plane step 1). SLAB_OPS_FULL_PLANE is the earlier count of
+# K7's and K8's full plane, kept to print their bounds on both yardsticks
+SLAB_OPS = {"slab_forward": 21, "slab_backward": 53, "slab_channels": 23, "slab_siddon": 46}
+SLAB_OPS_FULL_PLANE = {"slab_channels": 40, "slab_siddon": 48}
 
 
 def log(*a):
@@ -111,13 +119,17 @@ def cuda_time_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def profiler_ms(calls: dict, reps: int = 10) -> dict:
+def profiler_ms(calls: dict, reps: int = 10, tries: int = 3) -> dict:
     """Device time per call of each wrapper in ``calls`` (name -> fn) from
     torch.profiler: the CUDA activity's time of the wrapper's kernels, summed
     by kernel name, over ``reps`` calls. -> name -> ms, or None for every
-    name when the profiler records no device time on this machine. Fails
-    when some names record device time and others none (a kernel renamed
-    without DEVICE_KERNELS would otherwise report 0 ms)."""
+    name when the profiler records no device time on this machine. A session
+    can lose the activity records of the kernels launched first, so each
+    session starts with a throwaway kernel, and names whose kernels were not
+    each recorded a multiple of ``reps`` times while others were are
+    profiled again on their own, up to ``tries`` sessions. Fails when a name
+    still misses records (a kernel renamed without DEVICE_KERNELS would
+    otherwise report 0 ms)."""
     import re
 
     import torch
@@ -126,30 +138,40 @@ def profiler_ms(calls: dict, reps: int = 10) -> dict:
     for fn in calls.values():
         fn()
     torch.cuda.synchronize()
-    try:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for fn in calls.values():
-                for _ in range(reps):
-                    fn()
-            torch.cuda.synchronize()
-        events = prof.key_averages()
-    except Exception as exc:  # the profiler is a measurement, not a phase of the path
-        log(f"  profiler: unavailable ({type(exc).__name__}: {exc})")
-        return dict.fromkeys(calls)
     totals = dict.fromkeys(calls, 0.0)
-    for ev in events:
-        t = float(getattr(ev, "device_time_total", 0) or getattr(ev, "self_device_time_total", 0))
-        for name in calls:
-            if any(re.search(rf"\b{k}\b", ev.key) for k in DEVICE_KERNELS[name]):
-                totals[name] += t
-    if not any(totals.values()):
-        log("  profiler: no device time recorded; keeping the CUDA-event times only")
-        return dict.fromkeys(calls)
-    silent = [name for name, t in totals.items() if not t]
-    if silent:
-        raise AssertionError(f"profiler: no device time for {silent} while other kernels have "
-                             f"some; DEVICE_KERNELS names {[DEVICE_KERNELS[n] for n in silent]}")
-    return {name: totals[name] / 1e3 / reps for name in calls}
+    pending = dict(calls)
+    for attempt in range(tries):
+        try:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                torch.ones(1, device="cuda").add_(1)
+                torch.cuda.synchronize()
+                for fn in pending.values():
+                    for _ in range(reps):
+                        fn()
+                torch.cuda.synchronize()
+            events = prof.key_averages()
+        except Exception as exc:  # the profiler is a measurement, not a phase of the path
+            log(f"  profiler: unavailable ({type(exc).__name__}: {exc})")
+            return dict.fromkeys(calls)
+        seen = {name: [] for name in pending}  # (device us, records) per kernel name
+        for ev in events:
+            t = float(getattr(ev, "device_time_total", 0) or getattr(ev, "self_device_time_total", 0))
+            for name in pending:
+                if any(re.search(rf"\b{k}\b", ev.key) for k in DEVICE_KERNELS[name]):
+                    seen[name].append((t, ev.count))
+        for name, evs in seen.items():
+            if evs and all(t and n and n % reps == 0 for t, n in evs):
+                totals[name] = sum(t for t, _ in evs)
+        if not any(totals.values()):
+            log("  profiler: no device time recorded; keeping the CUDA-event times only")
+            return dict.fromkeys(calls)
+        pending = {name: fn for name, fn in pending.items() if not totals[name]}
+        if not pending:
+            return {name: totals[name] / 1e3 / reps for name in calls}
+        log(f"  profiler: session {attempt + 1} missed launches of {list(pending)}")
+    raise AssertionError(f"profiler: missed launches of {list(pending)} in {tries} sessions while "
+                         f"other kernels have some; DEVICE_KERNELS names "
+                         f"{[DEVICE_KERNELS[n] for n in pending]}")
 
 
 def library_device_ms(fn, reps: int = 10):
@@ -300,15 +322,17 @@ def check(name, got, ref, label, atol, rtol=0.0):
 
     diff = (got - ref).abs()
     err = float(diff.max())
-    ok = bool(torch.isfinite(got).all()) and bool((diff <= atol + rtol * ref.abs()).all())
+    tol = atol + rtol * ref.abs()
+    ok = bool(torch.isfinite(got).all()) and bool((diff <= tol).all())
+    share = float((diff / tol.clamp(min=1e-300)).max())
     log(f"  {name} {label}: max_abs_err={err:.3e} tol=atol {atol:.3e} + rtol {rtol:g}*|ref| "
-        f"{'OK' if ok else 'FAIL'}")
+        f"(worst {share:.3f} of it) {'OK' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{name} {label}: outside tolerance (max abs error {err})")
     return err
 
 
-REPEATS = 10  # calls of K1, K4, K5 and K6 held bit for bit against their first
+REPEATS = 10  # calls of a kernel held bit for bit against its first
 
 
 def same_bits(name, first, call, label):
@@ -666,7 +690,7 @@ def check_k6(k6, vol, fields, g, tag):
                      1e-4 * float(r6[j].abs().max()), 1e-3) for j in range(7))
 
 
-# K5/K6 geometry beyond the slab path's inputs: label -> (volume shape, B, R,
+# K5-K8 geometry beyond the slab path's inputs: label -> (volume shape, B, R,
 # kind). The rays of every case start from a source 30 planes before the
 # volume with directions within ~30 degrees of the march axis, some of them
 # clipped by the box, and 5 padding rays (ws = 0) per image; R is no multiple
@@ -717,20 +741,55 @@ def slab_edge_inputs(case, device="cuda", seed=7, B=None, R=None):
     return vol, torch.as_tensor(fields, dtype=torch.float32, device=device).contiguous()
 
 
-def phase_edge_slab(seed=8):
-    """K5 and K6 on SLAB_EDGE_CASES against their plain versions with the
-    path's tolerances (see phase_slab_kernels), eleven calls bit-identical
-    each. -> max abs error per kernel."""
+def check_k7(k7, vol, lab, chans, fields, tag, r5):
+    """K7 against the float32 plain version (1e-5 max|ref| + 1e-4 |ref|), and
+    its channel sum against the float64 K5 ``r5`` with K5's tolerance."""
+    from xvr_tpu_torch.render import pallas as sp
+
+    r7 = sp._slab_channels(vol, lab, chans, fields)
+    e7 = check("K7 slab_channels", k7, r7, tag, 1e-5 * float(r7.abs().max()), 1e-4)
+    check("K7 channel sum vs float64 K5", k7.sum(1).double(), r5, tag,
+          2e-5 * float(r5.abs().max()), 2e-4)
+    return e7
+
+
+def check_k8(k8, vol, fields, tag):
+    """K8 against the float64 plain version: 1e-4 max|ref| + 1e-3 |ref|."""
+    from xvr_tpu_torch.render import pallas as sp
+
+    r8 = sp._slab_siddon(vol, fields.double())
+    return check("K8 slab_siddon", k8.double(), r8, tag, 1e-4 * float(r8.abs().max()), 1e-3)
+
+
+# K7's labels on the edge cases: bytes 0-3 and 255, channels for 1, 2 and 255
+# (0 and 3 go to channel 0)
+EDGE_LABELS, EDGE_CHANS = (0, 1, 2, 3, 255), (1, 2, 255)
+
+
+def slab_edge_labels(shape, device="cuda", seed=9):
+    """A uint8 labelmap of EDGE_LABELS from a fixed seed."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    return torch.as_tensor(rng.choice(EDGE_LABELS, shape), dtype=torch.uint8, device=device)
+
+
+def phase_edge_slab(seed=8, device="cuda"):
+    """K5-K8 on SLAB_EDGE_CASES against their plain versions with the path's
+    tolerances (see phase_slab_kernels), eleven calls bit-identical each.
+    -> max abs error per kernel."""
     import torch
     from xvr_tpu_torch.render import _cuda
     from xvr_tpu_torch.render import pallas as sp
 
-    errs = {"slab_forward": 0.0, "slab_backward": 0.0}
+    errs = dict.fromkeys(("slab_forward", "slab_backward", "slab_channels", "slab_siddon"), 0.0)
     for label in SLAB_EDGE_CASES:
-        vol, fields = slab_edge_inputs(label)
+        vol, fields = slab_edge_inputs(label, device=device)
+        lab = slab_edge_labels(vol.shape, device=device)
         _, B, R = fields.shape
-        g = torch.randn((B, R), generator=torch.Generator(device="cuda").manual_seed(seed),
-                        device="cuda")
+        g = torch.randn((B, R), generator=torch.Generator(device=device).manual_seed(seed),
+                        device=device)
         tag = (f"{label} vol {tuple(vol.shape)} B={B} R={R} "
                f"split {_cuda.slab_plane_split(B, R)}")
         k5 = sp.slab_forward(vol, fields)
@@ -741,16 +800,24 @@ def phase_edge_slab(seed=8):
         k6 = sp.slab_backward(vol, fields, g)
         e6 = check_k6(k6, vol, fields, g, tag)
         same_bits("K6 slab_backward", k6, partial(sp.slab_backward, vol, fields, g), tag)
-        errs = {"slab_forward": max(errs["slab_forward"], e5),
-                "slab_backward": max(errs["slab_backward"], e6)}
+        k7 = sp.slab_channels(vol, lab, EDGE_CHANS, fields)
+        e7 = check_k7(k7, vol, lab, EDGE_CHANS, fields, tag, r5)
+        same_bits("K7 slab_channels", k7, partial(sp.slab_channels, vol, lab, EDGE_CHANS, fields),
+                  tag)
+        k8 = sp.slab_siddon(vol, fields)
+        e8 = check_k8(k8, vol, fields, tag)
+        same_bits("K8 slab_siddon", k8, partial(sp.slab_siddon, vol, fields), tag)
+        for name, e in (("slab_forward", e5), ("slab_backward", e6), ("slab_channels", e7),
+                        ("slab_siddon", e8)):
+            errs[name] = max(errs[name], e)
     _cuda.reset_launches()
     return errs
 
 
 def phase_slab_kernels(projector, pose16, pose4, labels, chans=(1, 2), time_ms=cuda_time_ms):
     """K5-K8 against their plain versions at the slab path's shapes (the
-    coarse sweep's B=16 at 60^2, then B=4 at 60^2, 120^2 and 239^2); K5 and
-    K6 also held bit for bit over eleven calls.
+    coarse sweep's B=16 at 60^2, then B=4 at 60^2, 120^2 and 239^2), each
+    also held bit for bit over eleven calls.
 
     References: K5 and K8 sum positive terms, so their plain versions run in
     float64. K6 sums signed terms with tent slopes that flip where a sample
@@ -779,7 +846,7 @@ def phase_slab_kernels(projector, pose16, pose4, labels, chans=(1, 2), time_ms=c
         tag, det, fields, g, gen = x["tag"], x["det"], x["fields"], x["g"], x["gen"]
         _, B, R = fields.shape
         f64 = fields.double()
-        log(f"  K5/K6 {tag}: {_cuda.slab_plane_split(B, R)} warps share a ray's planes")
+        log(f"  K5-K8 {tag}: {_cuda.slab_plane_split(B, R)} warps share a ray's planes")
 
         k5 = sp.slab_forward(vol, fields)
         e5, r5 = check_k5(k5, vol, fields, tag)
@@ -811,16 +878,14 @@ def phase_slab_kernels(projector, pose16, pose4, labels, chans=(1, 2), time_ms=c
             raise AssertionError(f"K6 disagrees with a finite difference of K5 ({rel})")
 
         k7 = sp.slab_channels(vol, lab, chans, fields)
-        r7 = sp._slab_channels(vol, lab, chans, fields)
-        e7 = check("K7 slab_channels", k7, r7, tag, 1e-5 * float(r7.abs().max()), 1e-4)
-        check("K7 channel sum vs float64 K5", k7.sum(1).double(), r5, tag,
-              2e-5 * float(r5.abs().max()), 2e-4)
+        e7 = check_k7(k7, vol, lab, chans, fields, tag, r5)
+        same_bits("K7 slab_channels", k7, partial(sp.slab_channels, vol, lab, chans, fields), tag)
         nonzero = [int((k7[:, c] > 0).sum()) for c in range(C)]
         log(f"    pixels > 0 per channel: {nonzero}")
 
         k8 = sp.slab_siddon(vol, fields)
-        r8 = sp._slab_siddon(vol, f64)
-        e8 = check("K8 slab_siddon", k8.double(), r8, tag, 1e-4 * float(r8.abs().max()), 1e-3)
+        e8 = check_k8(k8, vol, fields, tag)
+        same_bits("K8 slab_siddon", k8, partial(sp.slab_siddon, vol, fields), tag)
 
         # times at this shape
         reps = 20
@@ -836,32 +901,125 @@ def phase_slab_kernels(projector, pose16, pose4, labels, chans=(1, 2), time_ms=c
             slab_channels=partial(sp._slab_channels, vol, lab, chans, fields),
             slab_siddon=partial(sp._slab_siddon, vol, fields),
         )
-        tri, sid = slab_pairs(vol_shape, fields)
-        vol_b, ray_b = M * Wd * L * 2, B * R * 4
-        bounds = {
-            "slab_forward": (vol_b + 8 * ray_b, SLAB_OPS["slab_forward"] * tri),
-            "slab_backward": (vol_b + 15 * ray_b, SLAB_OPS["slab_backward"] * tri),
-            "slab_channels": (vol_b + M * Wd * L + (7 + C) * ray_b, SLAB_OPS["slab_channels"] * tri),
-            "slab_siddon": (vol_b + 8 * ray_b, SLAB_OPS["slab_siddon"] * sid),
-        }
         errs = {"slab_forward": e5, "slab_backward": e6, "slab_channels": e7, "slab_siddon": e8}
+        pairs = slab_pairs(vol_shape, fields)
         for name, call in calls[-1].items():
             ms, plain_ms = time_ms(call, reps), time_ms(plain[name], 2, warmup=1)
-            nbytes, nops = bounds[name]
-            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, nops / F32_FLOPS * 1e3
-            rec = dict(
-                name=name, route="cuda", source=SLAB_SOURCE, replaces=REPLACES[name],
-                launches=0, max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
-                bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
-                library_ms=None, shape=f"B={B} det={det[0]}x{det[1]} vol={M}x{Wd}x{L}",
-                B=B, det=det[0],
-            )
-            log(f"  time {name} [{rec['shape']}]: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}: {nbytes / 1e6:.1f} MB, "
-                f"{nops / 1e9:.3f} GFLOP over {tri if name != 'slab_siddon' else sid} pairs)")
+            rec = slab_record(name, vol_shape, fields, C, errs[name], ms, plain_ms,
+                              f"B={B} det={det[0]}x{det[1]} vol={M}x{Wd}x{L}", pairs)
             records.setdefault(name, []).append(rec)
     _cuda.reset_launches()
     return records, calls
+
+
+def slab_record(name, vol_shape, fields, C, err, ms, plain_ms, shape, pairs):
+    """The JSON record of one slab kernel at one shape, with its bound from
+    ``pairs`` (slab_pairs of these fields), and one line of it; K7 and K8
+    also under SLAB_OPS_FULL_PLANE."""
+    M, Wd, L = vol_shape
+    _, B, R = fields.shape
+    tri, sid = pairs
+    n_pairs = sid if name == "slab_siddon" else tri
+    vol_b, ray_b = M * Wd * L * 2, B * R * 4
+    nbytes = {"slab_forward": vol_b + 8 * ray_b, "slab_backward": vol_b + 15 * ray_b,
+              "slab_channels": vol_b + M * Wd * L + (7 + C) * ray_b,
+              "slab_siddon": vol_b + 8 * ray_b}[name]
+
+    def bound(ops):
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops * n_pairs / F32_FLOPS * 1e3
+        return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+    bound_ms, bound_by = bound(SLAB_OPS[name])
+    rec = dict(
+        name=name, route="cuda", source=SLAB_SOURCE, replaces=REPLACES[name], launches=0,
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=None, shape=shape, B=B, det=int(round(R ** 0.5)),
+    )
+    full = ""
+    if name in SLAB_OPS_FULL_PLANE:
+        rec["bound_ms_full_plane_ops"], by = bound(SLAB_OPS_FULL_PLANE[name])
+        full = (f"; {rec['bound_ms_full_plane_ops']:.4f} ms ({by}) at "
+                f"{SLAB_OPS_FULL_PLANE[name]} operations per pair")
+    log(f"  time {name} [{shape}]: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.1f} MB, "
+        f"{SLAB_OPS[name] * n_pairs / 1e9:.3f} GFLOP at {SLAB_OPS[name]} operations over "
+        f"{n_pairs} pairs){full}")
+    return rec
+
+
+# the trainer's finetune operating point (README.md: batch 116 at 128^2,
+# sdd 1020, delx 2.1764375), where the masked fallback renders through K7
+TRAINER = dict(B=116, height=128, delx=2.1764375, sdd=1020.0)
+TRAINER_CHECKED = 8  # images held against the plain versions
+
+
+def trainer_inputs(volume, seed=4):
+    """K7's and K8's inputs at the trainer's shape on the bench volume:
+    TRAINER["B"] poses within +-5 degrees and +-20 mm of the GT pose (numpy
+    seed), rendered by a ``with_pallas`` projector. -> (bf16 volume, uint8
+    labels, (7, B, R) fields)."""
+    import numpy as np
+    import torch
+    from xvr_tpu_torch.geometry import convert
+    from xvr_tpu_torch.render import Projector
+    from xvr_tpu_torch.render import pallas as sp
+    from xvr_tpu_torch.render import shearwarp as sw
+
+    dev = volume.data.device
+    rng = np.random.default_rng(seed)
+    B = TRAINER["B"]
+    rot = np.deg2rad([182.0, -4.0, 3.0]) + np.deg2rad(rng.uniform(-5, 5, (B, 3)))
+    xyz = np.array([6.0, 740.0, -10.0]) + rng.uniform(-20, 20, (B, 3))
+    pose = convert(torch.tensor(rot, dtype=torch.float32, device=dev),
+                   torch.tensor(xyz, dtype=torch.float32, device=dev), "euler_angles", "ZXY")
+    proj = Projector.from_volume(volume, sdd=TRAINER["sdd"], height=TRAINER["height"],
+                                 delx=TRAINER["delx"]).with_pallas(pose[:1])
+    if proj.renderer != "trilinear_pallas":
+        raise AssertionError(f"with_pallas declined the trainer's poses: {proj.renderer}")
+    with torch.no_grad():
+        src, tgt = proj.rays(pose)
+        fields = sp._fields(*sw._decompose(proj.affine_inverse, src, tgt, proj.pallas_perm))
+    return proj.pack_for_pallas()[0], sp.pack_labels(volume.mask, proj.pallas_perm), fields
+
+
+def phase_trainer_shape(volume, chans=(1, 2), time_ms=cuda_time_ms):
+    """K7 and K8 at the trainer's shape: held against their plain versions
+    (phase_slab_kernels' tolerances) on the first TRAINER_CHECKED images,
+    eleven calls bit-identical, and timed on all TRAINER["B"] (CUDA events,
+    torch.profiler device time alone, one plain call). -> name -> record."""
+    from xvr_tpu_torch.render import _cuda
+    from xvr_tpu_torch.render import pallas as sp
+
+    vol, lab, fields = trainer_inputs(volume)
+    vol_shape = tuple(vol.shape)
+    _, B, R = fields.shape
+    n = TRAINER_CHECKED
+    head = fields[:, :n].contiguous()
+    tag = f"trainer B={B} det {TRAINER['height']}^2 (first {n} checked)"
+    log(f"  K7/K8 {tag}: {_cuda.slab_plane_split(B, R)} warps share a ray's planes")
+    r5 = sp._slab_forward(vol, head.double())
+    k7 = sp.slab_channels(vol, lab, chans, fields)
+    e7 = check_k7(k7[:n].contiguous(), vol, lab, chans, head, tag, r5)
+    same_bits("K7 slab_channels", k7, partial(sp.slab_channels, vol, lab, chans, fields), tag)
+    k8 = sp.slab_siddon(vol, fields)
+    e8 = check_k8(k8[:n].contiguous(), vol, head, tag)
+    same_bits("K8 slab_siddon", k8, partial(sp.slab_siddon, vol, fields), tag)
+    pairs = slab_pairs(vol_shape, fields)
+    calls = {"slab_channels": (partial(sp.slab_channels, vol, lab, chans, fields),
+                               partial(sp._slab_channels, vol, lab, chans, fields), e7),
+             "slab_siddon": (partial(sp.slab_siddon, vol, fields),
+                             partial(sp._slab_siddon, vol, fields), e8)}
+    out = {}
+    for name, (call, plain, err) in calls.items():
+        rec = slab_record(name, vol_shape, fields, len(chans) + 1, err, time_ms(call, 20),
+                          time_ms(plain, 1, warmup=0), f"B={B} det={TRAINER['height']}^2 "
+                          f"vol={'x'.join(map(str, vol_shape))} (trainer)", pairs)
+        dev_ms = rec["profiler_ms"] = library_device_ms(call)[0]
+        log(f"  profiler {name} [{rec['shape']}]: device "
+            f"{'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'} per call (alone)")
+        out[name] = rec
+    _cuda.reset_launches()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1001,7 +1159,8 @@ def register(workdir: Path, gt_pose, fids, renderer, kernels, no_shearwarp=False
                           n_itrs=n_itrs, stages=stages)
 
 
-def label_and_siddon_renders(volume, gt_pose, gt_proj, gt_img, pose4, chans=(1, 2)):
+def label_and_siddon_renders(volume, gt_pose, gt_proj, gt_img, pose4, chans=(1, 2),
+                             time_ms=cuda_time_ms):
     """A labelmap render through ``Projector(labels=...)`` with the slab
     kernels at the fine stage, forward and backward (K7, K6), and the
     ``siddon_pallas`` render of the GT pose at full size (K8), each with
@@ -1050,6 +1209,12 @@ def label_and_siddon_renders(volume, gt_pose, gt_proj, gt_img, pose4, chans=(1, 
             and float(rot.grad.abs().sum()) > 0 and bool((err <= tol).all())):
         raise AssertionError("label render: non-finite output, zero gradient or channel sum off")
     diff = float(err.max())
+    # a label render packs the labelmap (pack_labels) and then runs K7
+    lab = sp.pack_labels(volume.mask, fine.pallas_perm)
+    pack_ms = time_ms(lambda: sp.pack_labels(volume.mask, fine.pallas_perm), 10)
+    k7_ms = time_ms(lambda: sp.slab_channels(packed, lab, chans, fields), 10)
+    log(f"slices: per label render, pack_labels {pack_ms:.4f} ms beside K7 {k7_ms:.4f} ms "
+        f"(CUDA events, 10 calls each)")
 
     sid_proj = gt_proj.replace(renderer="siddon_pallas")
     with torch.no_grad():
@@ -1063,7 +1228,8 @@ def label_and_siddon_renders(volume, gt_pose, gt_proj, gt_img, pose4, chans=(1, 
     if sid.shape != gt_img.shape or not np.isfinite(sid).all() or not corr > 0.95:
         raise AssertionError("siddon_pallas GT render is off")
     return ({"slab_channels": l7["slab_channels"], "slab_siddon": l8["slab_siddon"]},
-            dict(label_channel_shares=per_ch, label_sum_err=diff, siddon_corr=corr))
+            dict(label_channel_shares=per_ch, label_sum_err=diff, siddon_corr=corr,
+                 pack_labels_ms=pack_ms, label_k7_ms=k7_ms))
 
 
 SW_KERNELS = ("sw_accumulate", "sw_warp", "sw_warp_grads", "sw_accumulate_adjoint")
@@ -1135,6 +1301,7 @@ def main() -> int:
     edge_errs.update(phase_edge_slab())
     slab_records, slab_calls = phase_slab_kernels(slab_proj, pose16, pose4, vol.mask)
     records.update(slab_records)
+    trainer = phase_trainer_shape(vol)
     # device time of every kernel at each shape; grid_sample, K2 and K3 also
     # each profiled alone, so that K2/K3 and their library call compare alike
     fmt = lambda ms: "not measured" if ms is None else f"{ms:.4f} ms"  # noqa: E731
@@ -1183,12 +1350,16 @@ def main() -> int:
         rec["edge_max_abs_err"] = edge_errs.get(name)
         rec["gap_ms_per_registration"] = gaps[name][0]
         rec["coarse"] = {k: recs[0].get(k) for k in ("shape", "ms", "profiler_ms", "bound_ms",
-                                                     "plain_ms", "library_ms",
+                                                     "bound_ms_full_plane_ops", "plain_ms", "library_ms",
                                                      "library_profiler_ms", "alone_profiler_ms")}
         rec["stages"] = [{k: r.get(k) for k in ("shape", "ms", "profiler_ms", "bound_ms",
-                                                "library_ms", "library_profiler_ms",
-                                                "alone_profiler_ms")}
+                                                "bound_ms_full_plane_ops", "library_ms",
+                                                "library_profiler_ms", "alone_profiler_ms")}
                          for r in recs]
+        if name in trainer:
+            rec["trainer"] = {k: trainer[name].get(k) for k in (
+                "shape", "ms", "profiler_ms", "plain_ms", "bound_ms", "bound_by",
+                "bound_ms_full_plane_ops", "max_abs_err")}
         kernels.append(rec)
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print("slices " + json.dumps({"shearwarp": sw_stats, "slab": slab_stats, "renders": render_stats}),

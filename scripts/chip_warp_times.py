@@ -191,7 +191,7 @@ def main() -> int:
             raise SystemExit(f"--port {d}: no {SOURCE} there")
         ports.append(f"port {d}")
         sources[ports[-1]] = path.read_text()
-    built = slab_times.build(sources, _cuda.BUILD_DIR / "warp_times", _cuda, source=SOURCE.name,
+    built = slab_times.build(sources, _cuda.build_dir() / "warp_times", _cuda, source=SOURCE.name,
                              entries=ENTRIES)
     libs = {}
     for name, (path, report) in built.items():

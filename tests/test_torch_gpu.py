@@ -393,3 +393,89 @@ def test_fast_render_slab_backward_launches_k6(cuda):
     want.update(sw_accumulate=1, sw_warp=1, slab_backward=1)
     assert _cuda.LAUNCHES == want
     assert float(rot.grad.abs().sum()) > 0
+
+
+@pytest.mark.parametrize("case", SLAB_EDGE)
+def test_channel_and_siddon_kernels_edge_geometry(cuda, case):
+    """K7 and K8 on chip_smoke.py's K5/K6 edge geometry, with labels 0-3 and
+    255 and channels (1, 2, 255): K7 against its float32 plain version and
+    its channel sum against the float64 K5, K8 against its float64 plain
+    version; two calls give identical bits."""
+    from xvr_tpu_torch.render import pallas as sp
+
+    smoke = _smoke()
+    vol, fields = smoke.slab_edge_inputs(case, device=cuda)
+    lab = smoke.slab_edge_labels(vol.shape, device=cuda)
+    chans = smoke.EDGE_CHANS
+    got = sp.slab_channels(vol, lab, chans, fields)
+    ref = sp._slab_channels(vol, lab, chans, fields)
+    assert float(ref.abs().max()) > 0
+    torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-5 * float(ref.abs().max()))
+    r5 = sp._slab_forward(vol, fields.double())
+    torch.testing.assert_close(got.sum(1).double(), r5, rtol=2e-4,
+                               atol=2e-5 * float(r5.abs().max()))
+    assert torch.equal(got, sp.slab_channels(vol, lab, chans, fields))
+    got = sp.slab_siddon(vol, fields)
+    ref = sp._slab_siddon(vol, fields.double())
+    torch.testing.assert_close(got.double(), ref, rtol=1e-3, atol=1e-4 * float(ref.abs().max()))
+    assert torch.equal(got, sp.slab_siddon(vol, fields))
+
+
+@pytest.mark.parametrize("B,R,split", [(1, 100, 8), (70, 1000, 4), (140, 1000, 2),
+                                       (270, 1000, 1)])
+def test_channel_and_siddon_kernels_every_split(cuda, B, R, split):
+    """K7 and K8 with each plane split the rule picks (M = 19: ranges no
+    multiple of the split), against their plain versions."""
+    from xvr_tpu_torch.render import _cuda
+    from xvr_tpu_torch.render import pallas as sp
+
+    smoke = _smoke()
+    assert _cuda.slab_plane_split(B, R) == split
+    vol, fields = smoke.slab_edge_inputs("odd sizes", device=cuda, B=B, R=R)
+    lab = smoke.slab_edge_labels(vol.shape, device=cuda)
+    got = sp.slab_channels(vol, lab, (1, 2), fields)
+    ref = sp._slab_channels(vol, lab, (1, 2), fields)
+    torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-5 * float(ref.abs().max()))
+    got = sp.slab_siddon(vol, fields)
+    ref = sp._slab_siddon(vol, fields.double())
+    torch.testing.assert_close(got.double(), ref, rtol=1e-3, atol=1e-4 * float(ref.abs().max()))
+
+
+@pytest.mark.parametrize("chans", [(), (1, 1, 255), (3, 2, 1, 0), tuple(range(1, 16))])
+def test_slab_channels_channel_lists(cuda, chans):
+    """No channel, a duplicate value (two channels take the same samples),
+    label 0 named, and the kernel's 16 channels (sums in shared memory)."""
+    from xvr_tpu_torch.render import pallas as sp
+
+    smoke = _smoke()
+    vol, fields = smoke.slab_edge_inputs("trainer batch", device=cuda, B=4)
+    lab = torch.as_tensor(np.random.default_rng(10).integers(0, 256, vol.shape),
+                          dtype=torch.uint8, device=cuda)
+    got = sp.slab_channels(vol, lab, chans, fields)
+    ref = sp._slab_channels(vol, lab, chans, fields)
+    assert got.shape == (4, len(chans) + 1, fields.shape[2])
+    torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-5 * float(ref.abs().max()))
+    assert torch.equal(got, sp.slab_channels(vol, lab, chans, fields))
+    with pytest.raises(ValueError, match="channels"):
+        sp.slab_channels(vol, lab, tuple(range(16)), fields)
+
+
+def test_slab_channels_copies_nothing_to_the_device(cuda):
+    """The channel values go to K7 by value: a call makes no host-to-device
+    copy (none under torch.profiler), so it can be captured in a graph."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from xvr_tpu_torch.render import pallas as sp
+
+    smoke = _smoke()
+    vol, fields = smoke.slab_edge_inputs("odd sizes", device=cuda)
+    lab = smoke.slab_edge_labels(vol.shape, device=cuda)
+    sp.slab_channels(vol, lab, (1, 2), fields)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            sp.slab_channels(vol, lab, (1, 2), fields)
+        torch.cuda.synchronize()
+    keys = [ev.key for ev in prof.key_averages()]
+    assert any("slab_channels_kernel" in k for k in keys), keys
+    assert not any("HtoD" in k for k in keys), keys

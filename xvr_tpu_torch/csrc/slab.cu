@@ -61,8 +61,29 @@
 //    float64 reference and sums positive terms, and a lean plane's weight is
 //    exactly 1. K6 keeps every position rounded on its own (below).
 // On the H100 this took K5 from 0.28 to 0.09 ms and K6 from 0.53 to 0.16 ms
-// at the fine stage (scripts/chip_slab_times.py, PERF.md). K7 and K8 keep
-// PR 2's first plan: one thread per ray, all M planes.
+// at the fine stage (scripts/chip_slab_times.py, PERF.md).
+//
+// K7 and K8 take the same plan: plane split, trimmed range, parts summed in
+// warp order, and an interval of lean planes checked at its two ends.
+//  - K7's nearest label (k, rint(p1), rint(p2)) jumps at half-integers, so
+//    its positions are K6's: each product and sum rounded on its own, from
+//    k, as the plain version rounds them (a fused p1 one ulp off moves a
+//    whole sample to another channel). Only the contribution is fused. A
+//    block first maps every label byte to a bit mask of its channels in
+//    shared memory (the channel values come by value in the launch), so a
+//    plane costs one byte gather, one shared load and, for the usual single
+//    bit, one add. The channel sums live in registers for up to
+//    K7_REG_CHANNELS channels, else in a per-thread column of shared memory
+//    that doubles as the buffer for the part sums (registers were faster at
+//    the path's C = 3 on the H100: scripts/chip_slab_times.py).
+//  - K8 forms its crossings from the rounded sums of its rints and a
+//    per-ray reciprocal (a division per plane was slower and no closer to
+//    the float64 plain version).
+//  - K8's lean plane has its slab inside the box (its ends are the plain
+//    version's alpha -+ half) and its four rounded indices inside the volume
+//    with a second lane to spare: no clamp and no seg > 0 test.
+//  - rint, like floor, is one add on the FP32 pipe (rint_exact()), never the
+//    conversion unit.
 //
 // This file is compiled with -fmad=false: every multiply and add rounds on
 // its own, as the plain PyTorch versions compute them, except where a kernel
@@ -70,7 +91,7 @@
 // row (the tent slope flips), so a position one ulp off can change a term;
 // the checks hold K6 to a float32 plain version with identical positions on
 // that basis. The nearest-label (K7) and Siddon (K8) roundings are half to
-// even (__float2int_rn), as jnp.round, and float-to-int casts of window/lane
+// even (rint_exact()), as jnp.round, and float-to-int casts of window/lane
 // positions truncate, as astype(int32).
 //
 // Fields are one (7, B, R) f32 tensor: s0, s1, s2, d0, d1, d2, ws. Every
@@ -87,14 +108,19 @@ namespace {
 constexpr float BIG = 3e38f;
 constexpr int THREADS = 256;
 constexpr int MAX_CHANNELS = 16;
-// K5/K6: at most SPLIT_MAX warps share one ray's planes; the split doubles
+// K5-K8: at most SPLIT_MAX warps share one ray's planes; the split doubles
 // until the grid holds SPLIT_TARGET_WARPS warps (the CPU model in
 // tests/test_torch_slab_plan.py copies both)
 constexpr int SPLIT_MAX = 8;
 constexpr int SPLIT_TARGET_WARPS = 8448;  // one wave of 132 SMs x 64 warps
-// K5/K6: planes per unrolled step of the plane loop
+// planes per unrolled step of each kernel's lean loop
 constexpr int K5_UNROLL = 2;
 constexpr int K6_UNROLL = 2;
+constexpr int K7_UNROLL = 4;
+constexpr int K8_UNROLL = 2;
+// K7: channel counts up to this keep their sums in registers (0: always in
+// shared memory)
+constexpr int K7_REG_CHANNELS = 4;
 // K6: blocks of THREADS that its register budget lets one SM hold
 constexpr int K6_BLOCKS_PER_SM = 3;
 
@@ -142,58 +168,8 @@ __device__ __forceinline__ void ray_box(const Ray& r, int M, int Wd, int L, floa
   *a_out = fmaxf(aout, ain);
 }
 
-// Lane-axis tap: index clipped to [0, L - 2], fraction to [0, 1].
-struct LaneTap {
-  int idx, idx_hi;
-  float fx;
-};
-
-__device__ __forceinline__ LaneTap lane_tap(float p2, int L) {
-  int idx = (int)p2;  // truncation, as astype(int32)
-  idx = min(max(idx, 0), L > 1 ? L - 2 : 0);
-  return {idx, min(idx + 1, L - 1), fminf(fmaxf(p2 - (float)idx, 0.0f), 1.0f)};
-}
-
-// The trilinear slab sample of one plane: the slab weight trimmed to the
-// box, the window/lane validity of the sample, and the tap positions.
-struct Sample {
-  float alpha, p1, p2, w_alpha;
-  bool valid;
-};
-
-__device__ __forceinline__ Sample slab_sample(const Ray& r, int k, float inv_d0, float half,
-                                              float abs_d0, float a_in, float a_out, int Wd,
-                                              int L) {
-  Sample s;
-  s.alpha = ((float)k - r.s0) * inv_d0;
-  s.p1 = r.s1 + s.alpha * r.d1;
-  s.p2 = r.s2 + s.alpha * r.d2;
-  s.w_alpha = fmaxf(fminf(s.alpha + half, a_out) - fmaxf(s.alpha - half, a_in), 0.0f) * abs_d0;
-  s.valid = (s.w_alpha > 0.0f) && (s.p1 > -1.0f) && (s.p1 < (float)Wd) && (s.p2 >= 0.0f) &&
-            (s.p2 <= (float)(L - 1));
-  return s;
-}
-
-// Sum over the (at most two) window rows of tent(p1 - z) * lerp_lane, in
-// row order, starting from `acc`.
-__device__ __forceinline__ float rows_sum(const __nv_bfloat16* __restrict__ slab, int Wd, int L,
-                                          float p1, const LaneTap& t, float w_alpha, float acc) {
-  const int z0 = (int)floorf(p1);
-#pragma unroll
-  for (int d = 0; d < 2; ++d) {
-    const int z = z0 + d;
-    if (z < 0 || z >= Wd) continue;
-    const float wz = fmaxf(1.0f - fabsf(p1 - (float)z), 0.0f);
-    const float lo = __bfloat162float(slab[(size_t)z * L + t.idx]);
-    const float hi = __bfloat162float(slab[(size_t)z * L + t.idx_hi]);
-    const float v = lo + t.fx * (hi - lo);
-    acc = acc + (wz * w_alpha) * v;
-  }
-  return acc;
-}
-
 // ---------------------------------------------------------------------------
-// K5/K6 plan: P warps per 32 rays, each over a contiguous part of the ray's
+// K5-K8 plan: P warps per 32 rays, each over a contiguous part of the ray's
 // trimmed plane range
 // ---------------------------------------------------------------------------
 
@@ -269,7 +245,7 @@ __device__ __forceinline__ void lean_part(float ka, float kz, int kb, int ke, in
   }
 }
 
-// The thread's place in a K5/K6 block: warp (group * split + part) holds the
+// The thread's place in a K5-K8 block: warp (group * split + part) holds the
 // part-th plane range of the group's 32 rays.
 struct Slot {
   int part, r;
@@ -307,6 +283,21 @@ constexpr int MAX_EXTENT = 1 << 22;
 __device__ __forceinline__ float floor_exact(float x, int* i) {
   const float t = __fadd_rd(x, FLOOR_MAGIC);
   *i = __float_as_int(t) - __float_as_int(FLOOR_MAGIC);
+  return t - FLOOR_MAGIC;
+}
+
+// rint(x) (half to even) as a float and as an int, for |x| < 2^22: the same
+// add rounded to nearest. FLOOR_MAGIC is even, so a tie goes to the even
+// integer, as __float2int_rn and jnp.round take it.
+// rint_exact() in two steps: the rounded sum t (ordered as x's rint), and
+// the integer in t's bits.
+__device__ __forceinline__ float rint_sum(float x) { return __fadd_rn(x, FLOOR_MAGIC); }
+__device__ __forceinline__ int rint_of(float t) {
+  return __float_as_int(t) - __float_as_int(FLOOR_MAGIC);
+}
+__device__ __forceinline__ float rint_exact(float x, int* i) {
+  const float t = rint_sum(x);
+  *i = rint_of(t);
   return t - FLOOR_MAGIC;
 }
 
@@ -414,48 +405,161 @@ slab_forward_kernel(const __nv_bfloat16* __restrict__ vol, int M, int Wd, int L,
 // ---------------------------------------------------------------------------
 // K7: K5's samples split by the label of the nearest voxel (k, rint(p1),
 // rint(p2)): channel 1 + j for chans[j] (every match, as the TPU kernel),
-// channel 0 when no channel matches. Each slab's two-row sum is formed
-// first and then added to its channel(s).
+// channel 0 when no channel matches, in K5's plan. Positions are the plain
+// version's, op by op (see the top of the file); each slab's two-row sum is
+// formed first (fused) and then added to its channel(s). A lean plane's
+// weight is exactly 1, as K5's, and its nearest voxel lies in the volume
+// (0 <= p1 < Wd - 1, 0 <= p2 < L - 1), so it needs no clamp. NREG > 0 keeps
+// the sums of up to NREG channels in registers; NREG = 0 keeps them in the
+// thread's column of `acc`.
 // ---------------------------------------------------------------------------
-__global__ void slab_channels_kernel(const __nv_bfloat16* __restrict__ vol,
-                                     const uint8_t* __restrict__ labels, int M, int Wd, int L,
-                                     const int* __restrict__ chans, int n_chans,
-                                     const float* __restrict__ fields, float* __restrict__ out,
-                                     int B, int R) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+
+// The channel values, by value in the launch: v[j] for j < n.
+struct Channels {
+  int n;
+  int v[MAX_CHANNELS - 1];
+};
+
+template <int STEP, int NREG>
+__global__ void __launch_bounds__(THREADS)
+slab_channels_kernel(const __nv_bfloat16* __restrict__ vol, const uint8_t* __restrict__ labels,
+                     int M, int Wd, int L, Channels chans, const float* __restrict__ fields,
+                     float* __restrict__ out, int B, int R, int split) {
+  static_assert(THREADS == 256, "one label byte per thread builds the mask table");
+  __shared__ float acc[MAX_CHANNELS * THREADS];  // channel c of thread t at c * THREADS + t
+  __shared__ uint32_t mask_of[256];  // label byte -> bit 1 + j for each chans[j], else bit 0
+  {
+    const int t = threadIdx.x;
+    uint32_t m = 0;
+#pragma unroll
+    for (int j = 0; j < MAX_CHANNELS - 1; ++j)
+      if (j < chans.n && chans.v[j] == t) m |= 2u << j;
+    mask_of[t] = m ? m : 1u;
+  }
+  const int C = chans.n + 1;
+  float* col = acc + threadIdx.x;
+  float reg[NREG > 0 ? NREG : 1];
+  if constexpr (NREG > 0) {
+#pragma unroll
+    for (int c = 0; c < NREG; ++c) reg[c] = 0.0f;
+  } else {
+    for (int c = 0; c < C; ++c) col[c * THREADS] = 0.0f;
+  }
+  // add v to every channel of mask m, in plane order per channel
+  auto add = [&](uint32_t m, float v) {
+    if constexpr (NREG > 0) {
+#pragma unroll
+      for (int c = 0; c < NREG; ++c)
+        if ((m >> c) & 1u) reg[c] = reg[c] + v;
+    } else {
+      do {
+        float* a = col + (__ffs(m) - 1) * THREADS;
+        *a = *a + v;
+        m &= m - 1;
+      } while (m);
+    }
+  };
+  __syncthreads();  // mask_of
+
+  const Slot sl = slot_of(split);
   const int b = blockIdx.y;
-  if (r >= R) return;
-  const int C = n_chans + 1;
-  const size_t n = (size_t)B * R, o = (size_t)b * R + r;
-  const Ray ray = load_ray(fields, n, o);
-  float acc[MAX_CHANNELS];
-  for (int c = 0; c < C; ++c) acc[c] = 0.0f;
-  if (ray.ws > 0.0f) {
-    const float safe_d0 = fabsf(ray.d0) < 1e-6f ? 1e-6f : ray.d0;
-    const float inv_d0 = 1.0f / safe_d0;
-    const float half = 0.5f * fabsf(inv_d0);
-    const float abs_d0 = fabsf(safe_d0);
-    float a_in, a_out;
-    ray_box(ray, M, Wd, L, &a_in, &a_out);
-    for (int k = 0; k < M; ++k) {
-      const Sample s = slab_sample(ray, k, inv_d0, half, abs_d0, a_in, a_out, Wd, L);
-      if (!s.valid) continue;
-      const float contrib =
-          rows_sum(vol + (size_t)k * Wd * L, Wd, L, s.p1, lane_tap(s.p2, L), s.w_alpha, 0.0f);
-      const int rn = min(max(__float2int_rn(s.p1), 0), Wd - 1);
-      const int ln = min(max(__float2int_rn(s.p2), 0), L - 1);
-      const int lab = (int)labels[((size_t)k * Wd + rn) * L + ln];
-      bool fg = false;
-      for (int j = 0; j < n_chans; ++j) {
-        if (lab == chans[j]) {
-          acc[j + 1] = acc[j + 1] + contrib;
-          fg = true;
-        }
+  const bool live = sl.r < R;
+  const size_t n = (size_t)B * R, o = (size_t)b * R + sl.r;
+  float ws = 0.0f;
+  if (live) {
+    const Ray ray = load_ray(fields, n, o);
+    ws = ray.ws;
+    if (ray.ws > 0.0f) {
+      const float safe_d0 = fabsf(ray.d0) < 1e-6f ? 1e-6f : ray.d0;
+      const float inv_d0 = 1.0f / safe_d0;
+      const float half = 0.5f * fabsf(inv_d0);
+      const float abs_d0 = fabsf(safe_d0);
+      float a_in, a_out, k_lo, k_hi;
+      ray_box(ray, M, Wd, L, &a_in, &a_out);
+      box_planes(ray.s0, safe_d0, a_in, a_out, &k_lo, &k_hi);
+      int lo, hi, kb, ke;
+      plane_range(a_out > a_in, k_lo, k_hi, M, &lo, &hi);
+      plane_part(lo, hi, split, sl.part, &kb, &ke);
+      const float Wf = (float)Wd, Lm1 = (float)(L - 1);
+      const int lane_max = L > 1 ? L - 2 : 0;
+      const uint32_t plane = (uint32_t)Wd * L;
+
+      auto full = [&](int k) {
+        k = min(max(k, 0), M - 1);  // see K8's full plane
+        const float alpha = ((float)k - ray.s0) * inv_d0;
+        const float p1 = ray.s1 + alpha * ray.d1;
+        const float p2 = ray.s2 + alpha * ray.d2;
+        const float w = fmaxf(fminf(alpha + half, a_out) - fmaxf(alpha - half, a_in), 0.0f) * abs_d0;
+        if (!((w > 0.0f) && (p1 > -1.0f) && (p1 < Wf) && (p2 >= 0.0f) && (p2 <= Lm1))) return;
+        int idx, z0, rn, ln;
+        const float idx_f = floor_exact(p2, &idx);  // p2 >= 0: the truncation of astype(int32)
+        const float fx = p2 - fminf(idx_f, (float)lane_max);
+        idx = min(idx, lane_max);
+        const float fy = p1 - floor_exact(p1, &z0);
+        const uint32_t slab = (uint32_t)k * plane;
+        const __nv_bfloat16* t0 = tap(vol, slab + idx, max(z0, 0), L);
+        const __nv_bfloat16* t1 = tap(vol, slab + idx, min(z0 + 1, Wd - 1), L);
+        const float lo0 = ld(t0), hi0 = ld(t0 + STEP);
+        const float lo1 = ld(t1), hi1 = ld(t1 + STEP);
+        // rows z0 and z0 + 1 weigh 1 - fy and fy; a row outside the volume adds 0
+        const float v0 = z0 >= 0 ? __fmaf_rn(fx, hi0 - lo0, lo0) : 0.0f;
+        const float v1 = z0 + 1 < Wd ? __fmaf_rn(fx, hi1 - lo1, lo1) : 0.0f;
+        rint_exact(p1, &rn);
+        rint_exact(p2, &ln);
+        rn = min(max(rn, 0), Wd - 1);
+        ln = min(ln, L - 1);
+        add(mask_of[labels[slab + (uint32_t)(rn * L + ln)]], w * __fmaf_rn(fy, v1 - v0, v0));
+      };
+      // lean: the slab inside the box (and open), 0 <= p1 < Wd - 1, 0 <= p2 < L - 1
+      auto is_lean = [&](int k) {
+        const float alpha = ((float)k - ray.s0) * inv_d0;
+        const float p1 = ray.s1 + alpha * ray.d1;
+        const float p2 = ray.s2 + alpha * ray.d2;
+        const float u = alpha + half, v = alpha - half;
+        return (u <= a_out) && (v >= a_in) && (u > v) && (p1 >= 0.0f) && (p1 < Wf - 1.0f) &&
+               (p2 >= 0.0f) && (p2 < Lm1);
+      };
+      const float m1 = ray.d1 * inv_d0, m2 = ray.d2 * inv_d0;
+      float ka = k_lo + 1.5f, kz = k_hi - 1.5f;
+      narrow(ray.s1 - ray.s0 * m1, m1, 0.0f, Wf - 1.0f, &ka, &kz);
+      narrow(ray.s2 - ray.s0 * m2, m2, 0.0f, Lm1, &ka, &kz);
+      int ia, ib;
+      lean_part(ka, kz, kb, ke, &ia, &ib);
+      if (ia < ib && !(is_lean(ia) && is_lean(ib - 1))) ia = ib = ke;
+
+      for (int k = kb; k < ia; ++k) full(k);
+      uint32_t slab = (uint32_t)ia * plane;
+      float kf = (float)ia;
+#pragma unroll (K7_UNROLL)
+      for (int k = ia; k < ib; ++k, kf += 1.0f, slab += plane) {
+        const float alpha = (kf - ray.s0) * inv_d0;
+        const float p1 = ray.s1 + alpha * ray.d1;
+        const float p2 = ray.s2 + alpha * ray.d2;
+        int idx, z0, rn, ln;
+        const float fx = p2 - floor_exact(p2, &idx);
+        const float fy = p1 - floor_exact(p1, &z0);
+        const __nv_bfloat16* t0 = tap(vol, slab + idx, z0, L);
+        const float lo0 = ld(t0), hi0 = ld(t0 + 1);
+        const float lo1 = ld(t0 + L), hi1 = ld(t0 + L + 1);
+        rint_exact(p1, &rn);
+        rint_exact(p2, &ln);
+        const uint32_t m = mask_of[__ldg(labels + (slab + (uint32_t)(rn * L + ln)))];
+        const float v0 = __fmaf_rn(fx, hi0 - lo0, lo0);
+        const float v1 = __fmaf_rn(fx, hi1 - lo1, lo1);
+        add(m, __fmaf_rn(fy, v1 - v0, v0));
       }
-      if (!fg) acc[0] = acc[0] + contrib;
+      for (int k = ib; k < ke; ++k) full(k);
     }
   }
-  for (int c = 0; c < C; ++c) out[((size_t)b * C + c) * R + r] = acc[c] * ray.ws;
+  if constexpr (NREG > 0) {
+#pragma unroll
+    for (int c = 0; c < NREG; ++c)
+      if (c < C) col[c * THREADS] = reg[c];
+  }
+  __syncthreads();
+  if (sl.part == 0 && live)
+    for (int c = 0; c < C; ++c)
+      out[((size_t)b * C + c) * R + sl.r] = sum_parts(acc + c * THREADS, split) * ws;
 }
 
 // ---------------------------------------------------------------------------
@@ -696,72 +800,148 @@ slab_backward_kernel(const __nv_bfloat16* __restrict__ vol, int M, int Wd, int L
 // march axis crosses at most one window plane and one lane plane, so the
 // slab interval [aa, ab] splits into at most 3 segments over the voxels
 // {ra, rb} x {ca, cb}; the exact crossing parameters give exact lengths.
-// out = ws * |d0| * sum of voxel value x alpha length.
+// out = ws * |d0| * sum of voxel value x alpha length, in K5's plan. A lean
+// plane has its slab inside the box, so aa = alpha - half and ab = alpha +
+// half, as the plain version's max/min round them, and 0 <= p1 <= Wd - 1,
+// 0 <= p2 < L - 1.5 at both ends of the slab, so its four rounded indices
+// need no clamp and the second lane cmin + 1 lies in the volume.
 // ---------------------------------------------------------------------------
-__global__ void slab_siddon_kernel(const __nv_bfloat16* __restrict__ vol, int M, int Wd, int L,
-                                   const float* __restrict__ fields, float* __restrict__ out,
-                                   int B, int R) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+__global__ void __launch_bounds__(THREADS)
+slab_siddon_kernel(const __nv_bfloat16* __restrict__ vol, int M, int Wd, int L,
+                   const float* __restrict__ fields, float* __restrict__ out, int B, int R,
+                   int split) {
+  __shared__ float part[THREADS];
+  const Slot sl = slot_of(split);
   const int b = blockIdx.y;
-  if (r >= R) return;
-  const size_t n = (size_t)B * R, o = (size_t)b * R + r;
-  const Ray ray = load_ray(fields, n, o);
-  const float safe_d0 = fabsf(ray.d0) < 1e-6f ? 1e-6f : ray.d0;
-  const float abs_d0 = fabsf(safe_d0);
-  float acc = 0.0f;
-  if (ray.ws > 0.0f) {
-    const float inv_d0 = 1.0f / safe_d0;
-    const float half = 0.5f * fabsf(inv_d0);
-    const float safe_d1 = fabsf(ray.d1) < 1e-9f ? 1e-9f : ray.d1;
-    const float safe_d2 = fabsf(ray.d2) < 1e-9f ? 1e-9f : ray.d2;
-    float a_in, a_out;
-    ray_box(ray, M, Wd, L, &a_in, &a_out);
-    for (int k = 0; k < M; ++k) {
-      const float alpha = ((float)k - ray.s0) * inv_d0;
-      const float aa = fmaxf(alpha - half, a_in);
-      const float ab = fminf(alpha + half, a_out);
-      const float seg = ab - aa;
-      if (!(seg > 0.0f)) continue;
-      const float eps = 1e-5f * fmaxf(seg, 0.0f);
-      const float p1a = ray.s1 + (aa + eps) * ray.d1;
-      const float p1b = ray.s1 + (ab - eps) * ray.d1;
-      const float p2a = ray.s2 + (aa + eps) * ray.d2;
-      const float p2b = ray.s2 + (ab - eps) * ray.d2;
-      const int ra = min(max(__float2int_rn(p1a), 0), Wd - 1);
-      const int rb = min(max(__float2int_rn(p1b), 0), Wd - 1);
-      const int ca = min(max(__float2int_rn(p2a), 0), L - 1);
-      const int cb = min(max(__float2int_rn(p2b), 0), L - 1);
+  const bool live = sl.r < R;
+  const size_t n = (size_t)B * R, o = (size_t)b * R + sl.r;
+  float acc = 0.0f, ws = 0.0f, abs_d0 = 0.0f;
+  if (live) {
+    const Ray ray = load_ray(fields, n, o);
+    ws = ray.ws;
+    const float safe_d0 = fabsf(ray.d0) < 1e-6f ? 1e-6f : ray.d0;
+    abs_d0 = fabsf(safe_d0);
+    if (ray.ws > 0.0f) {
+      const float inv_d0 = 1.0f / safe_d0;
+      const float half = 0.5f * fabsf(inv_d0);
+      const float safe_d1 = fabsf(ray.d1) < 1e-9f ? 1e-9f : ray.d1;
+      const float safe_d2 = fabsf(ray.d2) < 1e-9f ? 1e-9f : ray.d2;
+      // a crossing by a per-ray reciprocal: as fast as a division is slow, and
+      // as close to the float64 plain version (scripts/chip_slab_times.py)
+      const float inv_d1 = 1.0f / safe_d1, inv_d2 = 1.0f / safe_d2;
+      const float c1 = -0.5f - ray.s1, c2 = -0.5f - ray.s2;
+      float a_in, a_out, k_lo, k_hi;
+      ray_box(ray, M, Wd, L, &a_in, &a_out);
+      box_planes(ray.s0, safe_d0, a_in, a_out, &k_lo, &k_hi);
+      int lo, hi, kb, ke;
+      plane_range(a_out > a_in, k_lo, k_hi, M, &lo, &hi);
+      plane_part(lo, hi, split, sl.part, &kb, &ke);
+      const float Wm1 = (float)(Wd - 1), Lm15 = (float)L - 1.5f;
+      const uint32_t plane = (uint32_t)Wd * L;
 
-      const float tw = (ra != rb) ? ((float)max(ra, rb) - 0.5f - ray.s1) / safe_d1 : BIG;
-      const float tl = (ca != cb) ? ((float)max(ca, cb) - 0.5f - ray.s2) / safe_d2 : BIG;
-      const bool first_is_w = tw <= tl;
-      const float t1c = fminf(fmaxf(fminf(tw, tl), aa), ab);
-      const float t2c = fminf(fmaxf(fmaxf(tw, tl), aa), ab);
-      const float L1 = t1c - aa;
-      const float L2 = t2c - t1c;
-      const float L3 = ab - t2c;
-      const float L_rb_ca = first_is_w ? L2 : 0.0f;
-      const float L_ra_cb = first_is_w ? 0.0f : L2;
+      // the crossing of the boundary below whole row/lane m (as a float), c =
+      // -0.5 - s
+      auto cross = [&](float m, float c, float inv_d) { return (m + c) * inv_d; };
+      // the slab [aa, ab] over voxels {ra, rb} x {ca, cb} of plane `slab`,
+      // with cmin = min(ca, cb) and chi its next lane (clamped)
+      auto segments = [&](uint32_t slab, float aa, float ab, int ra, int rb, int ca, int cb,
+                          float tw, float tl, int cmin, int chi) {
+        const bool first_is_w = tw <= tl;
+        const float t1c = fminf(fmaxf(fminf(tw, tl), aa), ab);
+        const float t2c = fminf(fmaxf(fmaxf(tw, tl), aa), ab);
+        const float L1 = t1c - aa;
+        const float L2 = t2c - t1c;
+        const float L3 = ab - t2c;
+        const float L_rb_ca = first_is_w ? L2 : 0.0f;
+        const float L_ra_cb = first_is_w ? 0.0f : L2;
+        const __nv_bfloat16* row_a = tap(vol, slab + cmin, ra, L);
+        const __nv_bfloat16* row_b = tap(vol, slab + cmin, rb, L);
+        const float lo_a = ld(row_a), hi_a = ld(row_a + (chi - cmin));
+        const float lo_b = ld(row_b), hi_b = ld(row_b + (chi - cmin));
+        const float a_ca = ca == cmin ? lo_a : hi_a, a_cb = cb == cmin ? lo_a : hi_a;
+        const float b_ca = ca == cmin ? lo_b : hi_b, b_cb = cb == cmin ? lo_b : hi_b;
+        const float A = __fmaf_rn(L_ra_cb, a_cb, L1 * a_ca);
+        const float Bv = __fmaf_rn(L3, b_cb, L_rb_ca * b_ca);
+        return A + Bv;
+      };
+      auto full = [&](int k) {
+        // The clamp changes no plane: on the H100 no call of full() took a k
+        // outside [0, M) (recorded on the card), yet without it K8 read outside
+        // the volume on box-clipped rays (an illegal address, on rays that a
+        // CPU run of this code reads within it): the compiled loop issues a
+        // plane's taps beyond the range it marches. K7's full plane keeps the
+        // same guard.
+        k = min(max(k, 0), M - 1);
+        const float alpha = ((float)k - ray.s0) * inv_d0;
+        const float aa = fmaxf(alpha - half, a_in);
+        const float ab = fminf(alpha + half, a_out);
+        const float seg = ab - aa;
+        if (!(seg > 0.0f)) return;
+        const float eps = 1e-5f * seg;
+        int ra, rb, ca, cb;
+        rint_exact(ray.s1 + (aa + eps) * ray.d1, &ra);
+        rint_exact(ray.s1 + (ab - eps) * ray.d1, &rb);
+        rint_exact(ray.s2 + (aa + eps) * ray.d2, &ca);
+        rint_exact(ray.s2 + (ab - eps) * ray.d2, &cb);
+        ra = min(max(ra, 0), Wd - 1);
+        rb = min(max(rb, 0), Wd - 1);
+        ca = min(max(ca, 0), L - 1);
+        cb = min(max(cb, 0), L - 1);
+        const float tw = ra != rb ? cross((float)max(ra, rb), c1, inv_d1) : BIG;
+        const float tl = ca != cb ? cross((float)max(ca, cb), c2, inv_d2) : BIG;
+        const int cmin = min(ca, cb);
+        acc = acc + segments((uint32_t)k * plane, aa, ab, ra, rb, ca, cb, tw, tl, cmin,
+                             min(cmin + 1, L - 1));
+      };
+      auto is_lean = [&](int k) {
+        const float alpha = ((float)k - ray.s0) * inv_d0;
+        const float u = alpha + half, v = alpha - half;
+        const float eps = 1e-5f * (u - v);
+        const float p1a = ray.s1 + (v + eps) * ray.d1, p1b = ray.s1 + (u - eps) * ray.d1;
+        const float p2a = ray.s2 + (v + eps) * ray.d2, p2b = ray.s2 + (u - eps) * ray.d2;
+        return (u <= a_out) && (v >= a_in) && (u > v) && (p1a >= 0.0f) && (p1a <= Wm1) &&
+               (p1b >= 0.0f) && (p1b <= Wm1) && (p2a >= 0.0f) && (p2a < Lm15) && (p2b >= 0.0f) &&
+               (p2b < Lm15);
+      };
+      // the slab's ends sit half a plane, |m| / 2 in position, from its centre
+      const float m1 = ray.d1 * inv_d0, m2 = ray.d2 * inv_d0;
+      const float h1 = 0.5f * fabsf(m1), h2 = 0.5f * fabsf(m2);
+      float ka = k_lo + 1.5f, kz = k_hi - 1.5f;
+      narrow(ray.s1 - ray.s0 * m1, m1, h1, Wm1 - h1, &ka, &kz);
+      narrow(ray.s2 - ray.s0 * m2, m2, h2, Lm15 - h2, &ka, &kz);
+      int ia, ib;
+      lean_part(ka, kz, kb, ke, &ia, &ib);
+      if (ia < ib && !(is_lean(ia) && is_lean(ib - 1))) ia = ib = ke;
 
-      const int cmin = min(max(min(ca, cb), 0), L - 1);
-      const int chi = min(cmin + 1, L - 1);
-      const __nv_bfloat16* slab = vol + (size_t)k * Wd * L;
-      const float lo_a = __bfloat162float(slab[(size_t)ra * L + cmin]);
-      const float hi_a = __bfloat162float(slab[(size_t)ra * L + chi]);
-      const float lo_b = __bfloat162float(slab[(size_t)rb * L + cmin]);
-      const float hi_b = __bfloat162float(slab[(size_t)rb * L + chi]);
-      const float A = L1 * (ca == cmin ? lo_a : hi_a) + L_ra_cb * (cb == cmin ? lo_a : hi_a);
-      const float Bv = L_rb_ca * (ca == cmin ? lo_b : hi_b) + L3 * (cb == cmin ? lo_b : hi_b);
-      acc = acc + (A + Bv);
+      for (int k = kb; k < ia; ++k) full(k);
+      uint32_t slab = (uint32_t)ia * plane;
+      float kf = (float)ia;
+#pragma unroll (K8_UNROLL)
+      for (int k = ia; k < ib; ++k, kf += 1.0f, slab += plane) {
+        const float alpha = (kf - ray.s0) * inv_d0;
+        const float ab = alpha + half, aa = alpha - half;
+        const float eps = 1e-5f * (ab - aa);
+        const float xa = aa + eps, xb = ab - eps;
+        // the rounded sums order as the indices: the larger one's index is
+        // fmaxf(sums) - FLOOR_MAGIC, exactly
+        const float ta = rint_sum(ray.s1 + xa * ray.d1), tb = rint_sum(ray.s1 + xb * ray.d1);
+        const float tc = rint_sum(ray.s2 + xa * ray.d2), td = rint_sum(ray.s2 + xb * ray.d2);
+        const float tw = ta != tb ? cross(fmaxf(ta, tb) - FLOOR_MAGIC, c1, inv_d1) : BIG;
+        const float tl = tc != td ? cross(fmaxf(tc, td) - FLOOR_MAGIC, c2, inv_d2) : BIG;
+        const int ca = rint_of(tc), cb = rint_of(td), cmin = min(ca, cb);
+        acc = acc + segments(slab, aa, ab, rint_of(ta), rint_of(tb), ca, cb, tw, tl, cmin,
+                             cmin + 1);
+      }
+      for (int k = ib; k < ke; ++k) full(k);
     }
   }
-  out[o] = acc * ray.ws * abs_d0;
+  part[threadIdx.x] = acc;
+  __syncthreads();
+  if (sl.part == 0 && live) out[o] = sum_parts(part, split) * ws * abs_d0;
 }
 
-dim3 ray_grid(int B, int R) { return dim3((R + THREADS - 1) / THREADS, B); }
-
-// K5/K6 take window and lane extents below 2^22 (floor_exact) and volumes
-// below 2^31 voxels (tap).
+// K5-K8 take window and lane extents below 2^22 (floor_exact, rint_exact)
+// and volumes below 2^31 voxels (tap).
 bool slab_fits(int M, int Wd, int L) {
   return Wd < MAX_EXTENT && L < MAX_EXTENT && (long long)M * Wd * L < (1LL << 31);
 }
@@ -811,19 +991,45 @@ int slab_plane_split(int B, int R) { return plane_split(B, R); }
 
 int slab_max_channels() { return MAX_CHANNELS; }
 
-int slab_channels(const void* vol, const void* labels, int M, int Wd, int L, const void* chans,
-                  int n_chans, const void* fields, void* out, int B, int R, void* stream) {
-  if (n_chans < 0 || n_chans + 1 > MAX_CHANNELS) return (int)cudaErrorInvalidValue;
-  slab_channels_kernel<<<ray_grid(B, R), THREADS, 0, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)vol, (const uint8_t*)labels, M, Wd, L, (const int*)chans, n_chans,
-      (const float*)fields, (float*)out, B, R);
+// `chan_values` is a host array of n_chans label values, passed to the
+// kernel by value (no device copy per call).
+int slab_channels(const void* vol, const void* labels, int M, int Wd, int L,
+                  const int* chan_values, int n_chans, const void* fields, void* out, int B, int R,
+                  void* stream) {
+  if (!slab_fits(M, Wd, L) || n_chans < 0 || n_chans + 1 > MAX_CHANNELS)
+    return (int)cudaErrorInvalidValue;
+  Channels chans = {};
+  chans.n = n_chans;
+  for (int j = 0; j < n_chans; ++j) chans.v[j] = chan_values[j];
+  const int split = plane_split(B, R);
+  const dim3 grid = split_grid(B, R, split);
+  const auto v = (const __nv_bfloat16*)vol;
+  const auto lab = (const uint8_t*)labels;
+  const auto f = (const float*)fields;
+  const auto st = (cudaStream_t)stream;
+  constexpr int NREG = K7_REG_CHANNELS > 0 ? K7_REG_CHANNELS : 1;
+  const bool regs = n_chans + 1 <= K7_REG_CHANNELS;
+  if (L > 1 && regs)
+    slab_channels_kernel<1, NREG><<<grid, THREADS, 0, st>>>(v, lab, M, Wd, L, chans, f,
+                                                             (float*)out, B, R, split);
+  else if (L > 1)
+    slab_channels_kernel<1, 0><<<grid, THREADS, 0, st>>>(v, lab, M, Wd, L, chans, f,
+                                                          (float*)out, B, R, split);
+  else if (regs)
+    slab_channels_kernel<0, NREG><<<grid, THREADS, 0, st>>>(v, lab, M, Wd, L, chans, f,
+                                                             (float*)out, B, R, split);
+  else
+    slab_channels_kernel<0, 0><<<grid, THREADS, 0, st>>>(v, lab, M, Wd, L, chans, f,
+                                                          (float*)out, B, R, split);
   return (int)cudaGetLastError();
 }
 
 int slab_siddon(const void* vol, int M, int Wd, int L, const void* fields, void* out, int B,
                 int R, void* stream) {
-  slab_siddon_kernel<<<ray_grid(B, R), THREADS, 0, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)vol, M, Wd, L, (const float*)fields, (float*)out, B, R);
+  if (!slab_fits(M, Wd, L)) return (int)cudaErrorInvalidValue;
+  const int split = plane_split(B, R);
+  slab_siddon_kernel<<<split_grid(B, R, split), THREADS, 0, (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)vol, M, Wd, L, (const float*)fields, (float*)out, B, R, split);
   return (int)cudaGetLastError();
 }
 

@@ -1,13 +1,16 @@
 """Build, load and launch the hand-written CUDA kernels (shear-warp K1-K4,
 slab march K5-K8).
 
-The sources live in ``xvr_tpu_torch/csrc/``. On first use each source is
-compiled by its own ``nvcc`` process, all started together, and the objects
-are linked into one shared library with a plain C interface (``build/`` at
-the repository root, keyed by a hash of the sources and flags) that is loaded
-with ``ctypes``. ``slab.cu`` is compiled with ``-fmad=false`` (see the note
-at its top). Nothing here runs at import time, so the module imports on a
-machine without a GPU or ``nvcc``.
+The sources live in ``xvr_tpu_torch/csrc/`` (``MANIFEST.in`` ships them in
+the package). On first use each source is compiled by its own ``nvcc``
+process, all started together, and the objects are linked into one shared
+library with a plain C interface, keyed by a hash of the sources and flags,
+that is loaded with ``ctypes``. It goes to :func:`build_dir`:
+``$XVR_TORCH_BUILD_DIR`` when set, else ``build/`` at the repository root
+when that can be written, else ``~/.cache/xvr_tpu_torch/build``.
+``slab.cu`` is compiled with ``-fmad=false`` (see the note at its top).
+Nothing here runs at import time, so the module imports on a machine without
+a GPU or ``nvcc``.
 
 Each launch function checks device, dtype, shape and contiguity, allocates
 its outputs with ``torch.empty``, launches on the current CUDA stream,
@@ -32,7 +35,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = (CSRC / "shearwarp.cu", CSRC / "slab.cu")
 # per-source nvcc flags beyond the common ones
 SOURCE_FLAGS = {"slab.cu": ("-fmad=false",)}
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
+BUILD_ENV = "XVR_TORCH_BUILD_DIR"
+REPO_BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 # launches per kernel since the last reset_launches(); read by chip_smoke.py
@@ -61,25 +65,46 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit to build")
 
 
+def _writable(path: Path) -> bool:
+    """Whether ``path`` can be written, or made where it does not exist yet."""
+    while not path.exists():
+        if path.parent == path:
+            return False
+        path = path.parent
+    return path.is_dir() and os.access(path, os.W_OK | os.X_OK)
+
+
+def build_dir() -> Path:
+    """Where the kernels are built: ``$XVR_TORCH_BUILD_DIR`` when it is set,
+    else the repository's ``build/`` when it can be written (a checkout),
+    else the user cache (an installed package)."""
+    if os.environ.get(BUILD_ENV):
+        return Path(os.environ[BUILD_ENV])
+    if _writable(REPO_BUILD_DIR):
+        return REPO_BUILD_DIR
+    return Path.home() / ".cache" / "xvr_tpu_torch" / "build"
+
+
 def build(verbose: bool = False) -> Path:
-    """Compile the kernel sources into ``build/`` unless an up-to-date
-    library is there already; returns its path. One ``nvcc -c`` per source
-    runs in parallel, then one link. ``verbose`` adds ``-Xptxas -v`` and keeps
-    the compilers' report in ``BUILD_INFO``."""
+    """Compile the kernel sources into :func:`build_dir` unless an
+    up-to-date library is there already; returns its path. One ``nvcc -c``
+    per source runs in parallel, then one link. ``verbose`` adds ``-Xptxas
+    -v`` and keeps the compilers' report in ``BUILD_INFO``."""
     common = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
     key = repr((common, SOURCE_FLAGS)).encode() + b"".join(p.read_bytes() for p in SOURCES)
     digest = hashlib.sha256(key).hexdigest()[:12]
-    out = BUILD_DIR / f"libxvr_kernels_{digest}.so"
+    where = build_dir()
+    out = where / f"libxvr_kernels_{digest}.so"
     if out.exists() and not verbose:
         BUILD_INFO.update(path=str(out), seconds=0.0, log="(cached)")
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    where.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     tag = f"{digest}.{os.getpid()}"
     t0 = time.perf_counter()
     procs = []
     for src in SOURCES:
-        obj = BUILD_DIR / f"{src.stem}.{tag}.o"
+        obj = where / f"{src.stem}.{tag}.o"
         cmd = [nvcc, *common, *SOURCE_FLAGS.get(src.name, ()), "-c", "-o", str(obj), str(src)]
         if verbose:
             cmd[1:1] = ["-Xptxas", "-v"]
@@ -121,7 +146,7 @@ def _load():
     lib.slab_backward.argtypes = [P, I, I, I, P, P, P, I, I, P]
     lib.slab_plane_split.argtypes = [I, I]
     lib.slab_max_channels.argtypes = []
-    lib.slab_channels.argtypes = [P, P, I, I, I, P, I, P, P, I, I, P]
+    lib.slab_channels.argtypes = [P, P, I, I, I, ctypes.POINTER(I), I, P, P, I, I, P]
     lib.slab_siddon.argtypes = [P, I, I, I, P, P, I, I, P]
     for fn in ("sw_accumulate", "sw_warp", "sw_warp_grads", "sw_adjoint_partials_shape",
                "sw_accumulate_adjoint", "slab_forward", "slab_backward", "slab_plane_split",
@@ -270,7 +295,7 @@ def _slab_inputs(vol, fields):
 
 
 def slab_plane_split(B: int, R: int) -> int:
-    """Warps that share one ray's planes in K5/K6 for B x R rays."""
+    """Warps that share one ray's planes in K5-K8 for B x R rays."""
     return _load().slab_plane_split(int(B), int(R))
 
 
@@ -303,17 +328,19 @@ def slab_backward(vol, fields, g) -> torch.Tensor:
 
 def slab_channels(vol, labels, chans, fields) -> torch.Tensor:
     """K7. ``labels`` (M, Wd, L) uint8 (the permuted labelmap), ``chans``
-    (C - 1,) int32 label values -> (B, C, R) f32."""
+    the C - 1 label values (ints, passed to the kernel by value: no copy to
+    the device) -> (B, C, R) f32."""
     lib = _load()
     dev, M, Wd, L, B, R = _slab_inputs(vol, fields)
     _check(labels, "labels", torch.uint8, (M, Wd, L), dev)
-    n = chans.shape[0]
-    _check(chans, "chans", torch.int32, (n,), dev)
+    values = [int(c) for c in chans]
+    n = len(values)
     if n + 1 > lib.slab_max_channels():
         raise ValueError(f"{n + 1} channels; the kernel takes at most {lib.slab_max_channels()}")
     out = torch.empty((B, n + 1, R), dtype=torch.float32, device=dev)
-    err = lib.slab_channels(vol.data_ptr(), labels.data_ptr(), M, Wd, L, chans.data_ptr(), n,
-                            fields.data_ptr(), out.data_ptr(), B, R, _stream(dev))
+    err = lib.slab_channels(vol.data_ptr(), labels.data_ptr(), M, Wd, L,
+                            (ctypes.c_int * max(n, 1))(*values), n, fields.data_ptr(),
+                            out.data_ptr(), B, R, _stream(dev))
     _raise_on(err, "slab_channels")
     LAUNCHES["slab_channels"] += 1
     return out

@@ -387,8 +387,7 @@ def slab_channels(vol, labels, chans, fields) -> torch.Tensor:
     """K7 on CUDA tensors, :func:`_slab_channels` on CPU tensors."""
     if _device_kind(vol) == "cpu":
         return _slab_channels(vol, labels, chans, fields)
-    chans_t = torch.tensor([int(c) for c in chans], dtype=torch.int32, device=vol.device)
-    return _cuda.slab_channels(vol, labels, chans_t, fields.contiguous())
+    return _cuda.slab_channels(vol, labels, chans, fields.contiguous())
 
 
 def slab_siddon(vol, fields) -> torch.Tensor:
