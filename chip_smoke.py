@@ -11,7 +11,9 @@ twice with scales 24,12,6, a 16-seed coarse sweep, 4 restart seeds and one
 re-anneal, from a ~4 mm initial error: once through shear-warp (K1-K4), once
 under XVR_NO_SHEARWARP=1 through the slab kernels (K5, K6). A labelmap render
 through ``Projector(labels=...)`` runs K7 (and K6 for its gradient) and a
-``siddon_pallas`` render of the ground-truth pose runs K8.
+``siddon_pallas`` render of the ground-truth pose runs K8. Then the user's
+entry point, ``python -m xvr_tpu_torch.cli register model|restart|dicom``,
+runs in process on the same scene from a synthetic ResNet-34 checkpoint.
 
 Phases (each prints one or more lines; any failure exits non-zero):
 
@@ -36,6 +38,14 @@ Phases (each prints one or more lines; any failure exits non-zero):
              renders, each with its launch counts (and pack_labels' time per
              label render beside K7's); each kernel's device time above its
              bound per registration, stage by stage
+5. entry     the CLI in process, in the same scene: a ResNet-34 checkpoint
+             (random seeded weights, heads set a few mm off the GT) written
+             in the JAX layout, its forward on the card against the CPU and
+             its time; ``register model`` with phase 4's configuration
+             (launches of K1-K4 alone, init = the CNN's pose, mTRE < 1 mm),
+             ``register restart`` from its bundle (init = its final pose bit
+             for bit, mTRE < 1 mm) and ``register dicom --init_only`` (init
+             = the positioner tags' pose); each command's wall time
 
 The line before the last is one JSON object with a record per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -1232,6 +1242,256 @@ def label_and_siddon_renders(volume, gt_pose, gt_proj, gt_img, pose4, chans=(1, 
                  pack_labels_ms=pack_ms, label_k7_ms=k7_ms))
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the entry points (python -m xvr_tpu_torch.cli register ...)
+# ---------------------------------------------------------------------------
+
+# the CNN users run (scripts/deepfluoro/train/*.sh: resnet34, GroupNorm) at
+# the trainer's operating point (128^2, delx 2.1764375, sdd 1020)
+MODEL_CONFIG = dict(model_name="resnet34", norm_layer="groupnorm",
+                    parameterization="quaternion_adjugate", convention="ZXY",
+                    unit_conversion_factor=1000.0, height=128, delx=2.1764375, sdd=1020.0,
+                    orientation="AP")
+# phase 4's registration, through the CLI (the rest are the CLI's defaults;
+# every command also takes phase 4's --crop 100)
+CLI_REGISTER = ["--scales", "24,12,6", "--n_itrs", "500,500,500", "--coarse_seeds", "16"]
+CLI_RESTART = ["--scales", "6", "--n_itrs", "100"]
+# CNN features on the card against the same module on the CPU, as a share of
+# max |feature|: cuDNN's TF32 convolutions (10-bit mantissa, rounding 2^-11
+# per product, through 36 convolutions) and, with TF32 off, float32 sums in
+# another order (the bound of the CPU parity with the JAX package)
+CNN_TF32_RTOL = 1e-2
+CNN_FP32_RTOL = 1e-4
+
+
+def synthetic_checkpoint(path, gt_pose, xray, crop=0, config=MODEL_CONFIG, seed=0,
+                         rot_off_deg=(0.4, -0.3, 0.3), xyz_off_mm=(1.5, -2.0, 1.0),
+                         head_step=(1e-3, 1.5), device="cuda"):
+    """Write a checkpoint (the JAX layout, no trained weights) of a
+    PoseRegressor whose prediction on ``xray`` lies a few mm off ``gt_pose``.
+    The backbone takes flax's initialization from a seeded torch.Generator;
+    the head biases encode ``gt_pose`` moved by ``rot_off_deg`` (ZXY degrees)
+    and ``xyz_off_mm``; the head kernels are random and scaled so that on
+    this X-ray's features they add a step of norm ``head_step[0]`` to the
+    rotation parameters and of ``head_step[1]`` mm to the translation.
+    -> (model on ``device``, its input: the preprocessed X-ray)."""
+    import numpy as np
+    import torch
+    from xvr_tpu_torch.geometry import convert
+    from xvr_tpu_torch.io import read_xray
+    from xvr_tpu_torch.models import PoseRegressor, init_pose_regressor
+    from xvr_tpu_torch.models.inference import predict_pose
+    from xvr_tpu_torch.state import to_flax_params
+    from xvr_tpu_torch.train import save_checkpoint
+
+    gen = torch.Generator().manual_seed(seed)
+    model = PoseRegressor(config["model_name"], config["parameterization"], config["convention"],
+                          config["norm_layer"], config["unit_conversion_factor"])
+    model = init_pose_regressor(model, gen).to(device).eval()
+    gt, sdd, delx, dely, x0, y0, _ = read_xray(xray, crop, False, False)
+    _, x = predict_pose(model, dict(model.state_dict()), config, gt, sdd, delx, dely, x0, y0)
+    rot, xyz = gt_pose.convert("euler_angles", "ZXY")
+    off = torch.tensor(np.deg2rad(rot_off_deg), dtype=torch.float32, device=rot.device)
+    target = convert(rot + off, xyz + torch.tensor(xyz_off_mm, device=xyz.device),
+                     "euler_angles", "ZXY")
+    t_rot, t_xyz = target.convert(config["parameterization"], config["convention"])
+    ucf = config["unit_conversion_factor"]
+    with torch.no_grad():
+        feats = model.backbone(x)[0]
+        for head, step, bias in ((model.rot_head, head_step[0], t_rot[0]),
+                                 (model.xyz_head, head_step[1] / ucf, t_xyz[0] / ucf)):
+            w = torch.randn(head.weight.shape, generator=gen).to(device)
+            head.weight.copy_(w * (step / float(torch.linalg.norm(w @ feats))))
+            head.bias.copy_(bias.to(device))
+    save_checkpoint(path, to_flax_params(model), {}, 0, 0, config)
+    return model, x
+
+
+def cnn_forward_check(model, x, time_ms=cuda_time_ms):
+    """The CNN's forward on the card against the same module on the CPU,
+    with cuDNN's TF32 as the path runs it and with TF32 off; its time (CUDA
+    events, batch 1) beside the device time of its kernels (torch.profiler).
+    -> stats."""
+    import copy
+
+    import torch
+
+    cpu = copy.deepcopy(model).cpu()
+    with torch.no_grad():
+        ref = cpu.backbone(x.cpu())
+        feats = model.backbone(x).cpu()
+        tf32 = bool(torch.backends.cudnn.allow_tf32)
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            feats32 = model.backbone(x).cpu()
+        finally:
+            torch.backends.cudnn.allow_tf32 = tf32
+        scale = float(ref.abs().max())
+        err, err32 = (float((f - ref).abs().max()) / scale for f in (feats, feats32))
+        ms = time_ms(lambda: model(x), 20)
+        device_ms, names = library_device_ms(lambda: model(x))
+    log(f"entry: CNN {MODEL_CONFIG['model_name']} on {tuple(x.shape)}: card vs CPU features "
+        f"max err {err:.3e} of max |feature| {scale:.3f} (<= {CNN_TF32_RTOL}; cuDNN TF32 "
+        f"{'on' if tf32 else 'off'}), with TF32 off {err32:.3e} (<= {CNN_FP32_RTOL}); "
+        f"forward {ms:.4f} ms (CUDA events, 20 calls, batch 1), device time "
+        f"{'not measured' if device_ms is None else f'{device_ms:.4f} ms'} over "
+        f"{len(names)} kernel names (torch.profiler, 10 calls)")
+    if not (err <= CNN_TF32_RTOL and err32 <= CNN_FP32_RTOL):
+        raise AssertionError("the CNN's forward on the card disagrees with the CPU")
+    return dict(tf32=tf32, feature_err=err, feature_err_no_tf32=err32, forward_ms=ms,
+                forward_device_ms=device_ms, kernel_names=len(names))
+
+
+class saved_registrars:
+    """Within the block, every registrar whose result bundle is written is
+    kept in ``self.seen`` (the CLI builds and drops its own)."""
+
+    def __enter__(self):
+        from xvr_tpu_torch.registrar.base import RegistrarBase
+
+        self.seen, self.orig = [], RegistrarBase._save_result
+
+        def spy(reg, *a, **k):
+            self.seen.append(reg)
+            return self.orig(reg, *a, **k)
+
+        RegistrarBase._save_result = spy
+        return self
+
+    def __exit__(self, *exc):
+        from xvr_tpu_torch.registrar.base import RegistrarBase
+
+        RegistrarBase._save_result = self.orig
+
+
+def cli_run(name, argv, kernels, renderer=None):
+    """Run ``python -m xvr_tpu_torch.cli`` in process with the launch counts
+    of this run alone; checks ``kernels`` launched and no other, and the
+    registrar's renderer. -> (registrar, launches, wall s)."""
+    from xvr_tpu_torch.cli import main
+
+    with saved_registrars() as saved:
+        t0 = time.perf_counter()
+        _, launches = counted(kernels, lambda: main(argv))
+        wall = time.perf_counter() - t0
+    if len(saved.seen) != 1:
+        raise AssertionError(f"{name}: {len(saved.seen)} bundles written, not 1")
+    reg = saved.seen[0]
+    stray = [k for k, v in launches.items() if v and k not in kernels]
+    log(f"entry: {name}: renderer {reg.projector.renderer}, wall {wall:.2f} s, "
+        f"launches {json.dumps(launches)}")
+    for rec in reg.stage_log:
+        log(f"  stage {rec['stage']} K={rec['K']} {rec['height']}x{rec['width']} "
+            f"{rec['renderer']}: {rec['n_done']} itrs, {rec['ms_per_itr']:.2f} ms/itr")
+    if stray:
+        raise AssertionError(f"{name}: kernels of another path launched: {stray}")
+    if renderer is not None and reg.projector.renderer != renderer:
+        raise AssertionError(f"{name} ran {reg.projector.renderer}, not {renderer}")
+    return reg, launches, wall
+
+
+def phase_entry_points(workdir: Path, gt_pose, fids, card: str, dev="cuda", kernels=None,
+                       register_args=CLI_REGISTER, restart_args=CLI_RESTART, crop=100,
+                       config=MODEL_CONFIG, time_ms=cuda_time_ms):
+    """``register model`` from a synthetic ResNet-34 checkpoint, ``register
+    restart`` from its bundle and ``register dicom --init_only`` from the
+    X-ray's positioner tags, through the CLI in the scene directory. Times
+    are tagged with ``card`` (nvidia-smi's name and power limit).
+    -> (launches of ``register model``, stats)."""
+    import numpy as np
+    import torch
+    from xvr_tpu_torch.io import dcmread, dcmwrite, parse_dicom_pose, pixel_array, read_xray
+    from xvr_tpu_torch.models.inference import predict_pose
+
+    kernels = SW_KERNELS if kernels is None else kernels
+    xray, ct = workdir / "xray.dcm", str(workdir / "ct.nii.gz")
+    gt_np = gt_pose.matrix[0].cpu().numpy()
+    base = ["-v", ct, "--device", dev, "--crop", str(crop)]
+    stats = {}
+
+    # 1. the checkpoint, and the CNN's forward on the card against the CPU
+    ckpt = workdir / "model" / f"{config['model_name']}.ckpt"
+    model, x = synthetic_checkpoint(ckpt, gt_pose, xray, crop, config, device=dev)
+    if dev == "cuda":
+        stats["cnn"] = cnn_forward_check(model, x, time_ms)
+    gt, sdd, delx, dely, x0, y0, _ = read_xray(xray, crop, False, False)
+    pred = predict_pose(model, dict(model.state_dict()), config, gt, sdd, delx, dely, x0, y0)[0]
+    m_cnn = fiducial_mtre(pred.matrix.cpu().numpy(), gt_np, fids)
+    log(f"entry: checkpoint {ckpt.name} ({ckpt.stat().st_size / 2**20:.1f} MiB): the CNN's "
+        f"pose is {m_cnn:.3f} mm mTRE from the GT (1-10 mm)")
+    if not 1.0 <= m_cnn <= 10.0:
+        raise AssertionError(f"the synthetic CNN's init is {m_cnn:.3f} mm off, not 1-10 mm")
+
+    # 2. register model
+    out = workdir / "out_model"
+    reg, launches, wall = cli_run(
+        "register model", ["register", "model", str(xray), *base, "-c", str(ckpt), "-o", str(out),
+                           *register_args], kernels, renderer="trilinear_fast" if kernels else None)
+    bundle = np.load(out / "xray" / "parameters.npz")
+    meta = json.loads((out / "xray" / "parameters.json").read_text())
+    pred_np = pred.matrix.cpu().numpy()
+    init_tol = 1e-6 * float(np.abs(pred_np).max())  # a few float32 ulps
+    init_err = float(np.abs(bundle["init_pose"] - pred_np).max())
+    m_init = fiducial_mtre(bundle["init_pose"], gt_np, fids)
+    m_final = fiducial_mtre(bundle["final_pose"], gt_np, fids)
+    log(f"entry: register model: bundle init pose vs predict_pose max |diff| {init_err:.3e} "
+        f"(<= {init_tol:.3e}); mTRE {m_init:.3f} -> {m_final:.3f} mm (< 1 mm); type "
+        f"{meta.get('type')}, date {meta.get('date')}")
+    if init_err > init_tol:
+        raise AssertionError("register model's init pose is not the CNN's prediction")
+    if not (meta.get("type") == "model" and meta.get("ckptpath") == str(ckpt) and meta.get("date")):
+        raise AssertionError(f"register model's bundle lacks type/ckptpath/date: {meta}")
+    if not m_final < 1.0:
+        raise AssertionError(f"register model: final mTRE {m_final:.3f} mm >= 1 mm")
+    stats["model"] = dict(wall_s=wall, mtre_cnn_mm=m_cnn, mtre_final_mm=m_final,
+                          stages=[dict(stage=r["stage"], K=r["K"], det=r["height"],
+                                       n_done=r["n_done"], ms_per_itr=r["ms_per_itr"])
+                                  for r in reg.stage_log])
+    model_launches = launches
+
+    # 3. register restart from that bundle
+    out_r = workdir / "out_restart"
+    _, _, wall = cli_run(
+        "register restart", ["register", "restart", str(xray), *base, "-o", str(out_r), "--ckpt",
+                             str(out / "xray" / "parameters.npz"), *restart_args],
+        kernels, renderer="trilinear_fast" if kernels else None)
+    rb = np.load(out_r / "xray" / "parameters.npz")
+    m_restart = fiducial_mtre(rb["final_pose"], gt_np, fids)
+    same = bool(np.array_equal(rb["init_pose"], bundle["final_pose"]))
+    log(f"entry: register restart: init pose = the model run's final pose bit for bit: {same}; "
+        f"mTRE {m_final:.3f} -> {m_restart:.3f} mm (< 1 mm)")
+    if not same or not m_restart < 1.0:
+        raise AssertionError("register restart: init pose not the bundle's, or mTRE >= 1 mm")
+    stats["restart"] = dict(wall_s=wall, mtre_final_mm=m_restart)
+
+    # 4. register dicom --init_only, from the positioner tags
+    pos = workdir / "positioner" / "xray.dcm"
+    pos.parent.mkdir(exist_ok=True)
+    ds = dcmread(xray)
+    spacing = [float(v) for v in ds.PixelSpacing]
+    dcmwrite(pos, pixel_array(ds), sdd=float(ds.DistanceSourceToDetector),
+             row_spacing=spacing[0], col_spacing=spacing[1],
+             extra=[(0x0018, 0x1510, b"DS", "181.5"), (0x0018, 0x1511, b"DS", "-3.5"),
+                    (0x0018, 0x1111, b"DS", "745")])
+    out_d = workdir / "out_dicom"
+    _, _, wall = cli_run("register dicom", ["register", "dicom", str(pos), *base, "-o", str(out_d),
+                                            "--init_only"], ())
+    db = np.load(out_d / "xray" / "parameters.npz")
+    ref = parse_dicom_pose(pos, "AP", device=dev).matrix.cpu().numpy()
+    same = bool(np.array_equal(db["init_pose"].reshape(ref.shape), ref))
+    log(f"entry: register dicom --init_only: init pose = parse_dicom_pose bit for bit: {same}; "
+        f"final pose saved: {'final_pose' in db.files}")
+    if not same or "final_pose" in db.files:
+        raise AssertionError("register dicom: init pose is not the positioner's")
+    stats["dicom"] = dict(wall_s=wall)
+    cnn_ms = stats["cnn"]["forward_ms"] if "cnn" in stats else None
+    log(f"entry: wall register model {stats['model']['wall_s']:.2f} s, register restart "
+        f"{stats['restart']['wall_s']:.2f} s, register dicom --init_only {wall:.2f} s; CNN "
+        f"forward {'not measured' if cnn_ms is None else f'{cnn_ms:.4f} ms'} (batch 1, "
+        f"{config['height']}^2) [{card}]")
+    return model_launches, stats
+
+
 SW_KERNELS = ("sw_accumulate", "sw_warp", "sw_warp_grads", "sw_accumulate_adjoint")
 SLAB_PATH = ("slab_forward", "slab_backward")
 
@@ -1330,6 +1590,8 @@ def main() -> int:
         sw_launches, sw_stats = register(workdir, gt_pose, fids, "trilinear_fast", SW_KERNELS)
         slab_launches, slab_stats = register(workdir, gt_pose, fids, "trilinear_pallas",
                                              SLAB_PATH, no_shearwarp=True)
+        # 5. the entry points, in the same scene
+        entry_launches, entry_stats = phase_entry_points(workdir, gt_pose, fids, smi)
     render_launches, render_stats = label_and_siddon_renders(vol, gt_pose, gt_proj, gt_img, pose4)
     launches = {**{k: sw_launches[k] for k in sw_launches if k.startswith("sw_")},
                 "slab_forward": slab_launches["slab_forward"],
@@ -1346,6 +1608,8 @@ def main() -> int:
     for name, recs in records.items():
         rec = dict(recs[-1])
         rec["launches"] = launches[name]
+        if name in SW_KERNELS:
+            rec["launches_register_model"] = entry_launches[name]
         rec["max_abs_err"] = max(r["max_abs_err"] for r in recs)
         rec["edge_max_abs_err"] = edge_errs.get(name)
         rec["gap_ms_per_registration"] = gaps[name][0]
@@ -1364,6 +1628,7 @@ def main() -> int:
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print("slices " + json.dumps({"shearwarp": sw_stats, "slab": slab_stats, "renders": render_stats}),
           flush=True)
+    print("entry " + json.dumps({**entry_stats, "model_launches": entry_launches}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

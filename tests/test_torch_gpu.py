@@ -479,3 +479,46 @@ def test_slab_channels_copies_nothing_to_the_device(cuda):
     keys = [ev.key for ev in prof.key_averages()]
     assert any("slab_channels_kernel" in k for k in keys), keys
     assert not any("HtoD" in k for k in keys), keys
+
+
+def test_resnet34_forward_matches_cpu(cuda):
+    """The pose CNN users run (ResNet-34, GroupNorm) at 128^2 on the card
+    against the same module on the CPU: within chip_smoke.py's 1e-2 of max
+    |feature| with cuDNN's TF32 convolutions as PyTorch sets them, 1e-4 with
+    TF32 off."""
+    from xvr_tpu_torch.models import PoseRegressor, init_pose_regressor
+
+    smoke = _smoke()
+    model = init_pose_regressor(PoseRegressor("resnet34"), torch.Generator().manual_seed(0)).eval()
+    x = torch.as_tensor(np.random.default_rng(11).normal(size=(2, 1, 128, 128)), dtype=torch.float32)
+    with torch.no_grad():
+        ref = model.backbone(x)
+        card = model.to(cuda)
+        got = card.backbone(x.to(cuda)).cpu()
+        tf32 = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            got32 = card.backbone(x.to(cuda)).cpu()
+        finally:
+            torch.backends.cudnn.allow_tf32 = tf32
+    scale = float(ref.abs().max())
+    assert float((got - ref).abs().max()) <= smoke.CNN_TF32_RTOL * scale
+    assert float((got32 - ref).abs().max()) <= smoke.CNN_FP32_RTOL * scale
+
+
+def test_register_entry_points_on_the_card(cuda, tmp_path):
+    """chip_smoke.py's phase 5 on a 64^3 phantom and a 356^2 X-ray: ``register
+    model`` from a ResNet-34 checkpoint launches K1-K4 and no other kernel
+    and ends under 1 mm; ``register restart`` and ``register dicom`` start
+    from the bundle's and the positioner's poses."""
+    smoke = _smoke()
+    hu, aff, fids = smoke.build_phantom(64)
+    gt_pose, _, _ = smoke.write_scene(tmp_path, hu, aff, dev="cuda", det=356)
+    launches, stats = smoke.phase_entry_points(
+        tmp_path, gt_pose, fids, "card", dev="cuda",
+        register_args=["--scales", "6,3", "--n_itrs", "100,100", "--coarse_seeds", "6",
+                       "--restart_seeds", "2", "--verbose", "0"],
+        restart_args=["--scales", "3", "--n_itrs", "20", "--restart_seeds", "2",
+                      "--max_restarts", "0", "--verbose", "0"])
+    assert all(launches[k] > 0 for k in smoke.SW_KERNELS)
+    assert stats["model"]["mtre_final_mm"] < 1.0 and stats["cnn"]["forward_ms"] > 0

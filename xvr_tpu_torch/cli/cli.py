@@ -1,0 +1,38 @@
+"""The port's command line: ``python -m xvr_tpu_torch.cli``.
+
+Counterpart of ``xvr_tpu.cli.cli`` on ``argparse`` (the port runs without
+``click``): ``-v/--version`` and the ``register {model,dicom,fixed,restart}``
+group. ``train``, ``restart``, ``animate`` and ``dcm2nii`` are not ported
+yet. A ``--device cuda`` request on a machine with no CUDA device fails.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+from .. import __version__
+from .commands.register import add_register_parser
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(
+        prog="python -m xvr_tpu_torch.cli",
+        description="xvr-tpu, PyTorch/CUDA port: 2D/3D X-ray to volume registration.",
+    )
+    parser.add_argument("-v", "--version", action="version",
+                        version=f"%(prog)s, version {__version__}")
+    sub = parser.add_subparsers(dest="command", required=True, metavar="{register}")
+    add_register_parser(sub)
+    return parser
+
+
+def main(argv=None) -> int:
+    """Parse ``argv`` (default: ``sys.argv[1:]``) and run the command."""
+    kw = vars(build_parser().parse_args(argv))
+    if kw.get("device") == "cuda":
+        import torch
+
+        if not torch.cuda.is_available():
+            raise RuntimeError("--device cuda: no CUDA device is available (pass --device cpu)")
+    kw.pop("func")(kw)
+    return 0

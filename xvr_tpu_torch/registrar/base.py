@@ -119,7 +119,7 @@ class RegistrarBase:
     ):
         if mesh is not None:
             raise NotImplementedError(
-                "device meshes are not ported to xvr_tpu_torch yet (ROADMAP: Queue 1 item 12)"
+                "device meshes are not ported to xvr_tpu_torch yet (ROADMAP: device mesh)"
             )
         self.device = torch.device(device)
         self.volume = volume

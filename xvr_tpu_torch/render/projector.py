@@ -193,7 +193,7 @@ class Projector:
         if self.labels is not None and self.volume.mask is not None:
             raise NotImplementedError(
                 "label-channel shear-warp is not ported to xvr_tpu_torch yet "
-                "(ROADMAP: Queue 1 item 3, channel folding)"
+                "(ROADMAP: label-channel shear-warp stacks)"
             )
         perm = choose_permutation_for_pose(self._mean_pose_R(reference_pose),
                                            self.affine_inverse_host())

@@ -55,6 +55,7 @@ MAX_LANE = 1536  # slope-grid extent cap, as in the JAX package's warp
 
 
 def _not_ported(what: str, item: str):
+    """``item``: the title of the ROADMAP entry that ports ``what``."""
     return NotImplementedError(f"{what} is not ported to xvr_tpu_torch yet (ROADMAP: {item})")
 
 
@@ -62,7 +63,7 @@ def prepare_shearwarp(density: torch.Tensor, perm, mask=None, labels=None) -> to
     """Permute a density grid to (march, window, lane) order and cast bf16.
     O(volume): hoist out of optimization loops (``prepared=``)."""
     if mask is not None and labels is not None:
-        raise _not_ported("label-channel shear-warp stacks", "Queue 1 item 3, channel folding")
+        raise _not_ported("label-channel shear-warp stacks", "label-channel shear-warp stacks")
     return density.permute(*perm).contiguous().to(torch.bfloat16)
 
 
@@ -423,9 +424,9 @@ def _resolve(density, affine_inverse, source, target, det_shape, perm, prepared,
     if source.shape[-2] != 1:
         raise ValueError("shear-warp requires a point source: source (B, 1, 3)")
     if grid_bounds is not None:
-        raise _not_ported("grid_bounds (ray-sharded shear-warp)", "Queue 1 item 12, parallel/")
+        raise _not_ported("grid_bounds (ray-sharded shear-warp)", "device mesh")
     if chan_bounds is not None or (prepared is not None and prepared.ndim == 4):
-        raise _not_ported("label-channel shear-warp stacks", "Queue 1 item 3, channel folding")
+        raise _not_ported("label-channel shear-warp stacks", "label-channel shear-warp stacks")
     if perm is None:
         d_mean = (target.mean(dim=(0, 1)) - source.mean(dim=(0, 1))).detach().cpu().numpy()
         A = affine_inverse.detach().cpu().numpy()
