@@ -13,7 +13,9 @@ under XVR_NO_SHEARWARP=1 through the slab kernels (K5, K6). A labelmap render
 through ``Projector(labels=...)`` runs K7 (and K6 for its gradient) and a
 ``siddon_pallas`` render of the ground-truth pose runs K8. Then the user's
 entry point, ``python -m xvr_tpu_torch.cli register model|restart|dicom``,
-runs in process on the same scene from a synthetic ResNet-34 checkpoint.
+runs in process on the same scene from a synthetic ResNet-34 checkpoint, and
+``python -m xvr_tpu_torch.cli train|restart`` trains the pose CNN on the CT
+with a two-label mask (finetune configuration, batch 116 at 128^2).
 
 Phases (each prints one or more lines; any failure exits non-zero):
 
@@ -46,6 +48,19 @@ Phases (each prints one or more lines; any failure exits non-zero):
              ``register restart`` from its bundle (init = its final pose bit
              for bit, mTRE < 1 mm) and ``register dicom --init_only`` (init
              = the positioner tags' pose); each command's wall time
+6. train     K1-K4 at the trainer's shape (B=116 poses of the finetune
+             ranges at 128^2; in phase 3's block): single-channel and as the
+             two-label stack with its slab bounds, against their plain
+             versions on 8 images per channel, eleven calls bit-identical,
+             CUDA-event and profiler times beside their bounds. Then the CLI
+             in process: ``train`` masked with the finetune configuration
+             (ResNet-34, batch 116 at 128^2, 12 steps, a checkpoint every
+             6), ``train`` unmasked with bench_train's ranges (6 steps) and
+             ``restart`` from the masked run's step-6 checkpoint: the route,
+             host ms per step, device ms per step by kernel and the rest,
+             launches per step against the route's, peak memory, loss and
+             kept share per step; the restart's iteration and optimizer
+             state against its checkpoint
 
 The line before the last is one JSON object with a record per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -605,15 +620,7 @@ def phase_kernels(projector, pose16, pose4, time_ms=cuda_time_ms):
                 lib,
             )
             # bounds from this run's inputs
-            n_act = active_samples((M, Wd, L), x)
-            vol_b = M * Wd * L * 2
-            bounds = {
-                "sw_accumulate": (vol_b + B * 8 * 4 + B * Iu * Iv * 4, 8 * n_act),
-                "sw_accumulate_adjoint": (vol_b + B * Iu * Iv * 2 + B * 8 * 4 + B * (Iu + Iv) * 4,
-                                          16 * n_act),
-                "sw_warp": (B * Iu * Iv * 4 + 4 * B * R * 4, 12 * B * R),
-                "sw_warp_grads": (B * Iu * Iv * 4 + 6 * B * R * 4, 16 * B * R),
-            }
+            bounds = {name: sw_bounds(name, (M, Wd, L), x, B, R, Iu, Iv) for name in t}
             errs = {"sw_accumulate": e1, "sw_accumulate_adjoint": e4, "sw_warp": e2,
                     "sw_warp_grads": e3}
             for name, (ms, plain_ms, lib_ms) in t.items():
@@ -1028,6 +1035,186 @@ def phase_trainer_shape(volume, chans=(1, 2), time_ms=cuda_time_ms):
         log(f"  profiler {name} [{rec['shape']}]: device "
             f"{'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'} per call (alone)")
         out[name] = rec
+    _cuda.reset_launches()
+    return out
+
+
+# K1-K4 at the trainer's shape: the finetune configuration's poses (batch 116
+# at 128^2, alpha 135-225, beta +-45), rendered by the shear-warp projector
+# the trainer chooses for them, unmasked and as the two-label stack
+FINETUNE_RANGES = dict(alphamin=135.0, alphamax=225.0, betamin=-45.0, betamax=45.0,
+                       gammamin=-15.0, gammamax=15.0, txmin=-150.0, txmax=150.0,
+                       tymin=450.0, tymax=1000.0, tzmin=-150.0, tzmax=150.0)
+TRAIN_LABELS = (1, 2)
+
+
+def train_mask(n: int):
+    """The trainer's two-label mask (scripts/bench_train.py's construction):
+    two adjacent boxes in the middle of an n^3 volume, int32."""
+    import numpy as np
+
+    mask = np.zeros((n, n, n), dtype=np.int32)
+    mask[n // 4 : n // 2, n // 4 : 3 * n // 4, n // 4 : 3 * n // 4] = 1
+    mask[n // 2 : 3 * n // 4, n // 4 : 3 * n // 4, n // 4 : 3 * n // 4] = 2
+    return mask
+
+
+def sw_trainer_inputs(hu, aff, dev="cuda", seed=4):
+    """The masked projector the trainer picks for the finetune ranges (one
+    stratum, its permutation and label slab bounds) and TRAINER["B"] poses
+    drawn as the trainer draws them (seeded generator, shifted to the volume
+    centre). -> (projector with labels, poses)."""
+    import torch
+    from xvr_tpu_torch.geometry import RigidTransform, make_translation
+    from xvr_tpu_torch.render import Projector, Volume
+    from xvr_tpu_torch.train.sampler import get_random_pose
+    from xvr_tpu_torch.train.trainer import Trainer
+
+    vol = Volume(torch.as_tensor(hu, device=dev), torch.as_tensor(aff, device=dev),
+                 mask=torch.as_tensor(train_mask(hu.shape[0]), device=dev))
+    r = FINETUNE_RANGES
+    proj = Projector.from_volume(vol, sdd=TRAINER["sdd"], height=TRAINER["height"],
+                                 delx=TRAINER["delx"], labels=TRAIN_LABELS)
+    proj = proj.with_shearwarp(Trainer._mean_pose((r["alphamin"] + r["alphamax"]) / 2, r),
+                               probe_poses=Trainer._probe_corners(**r))
+    if proj.renderer != "trilinear_fast":
+        raise AssertionError(f"shear-warp declined the finetune ranges: {proj.renderer}")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    pose = get_random_pose(gen, batch_size=TRAINER["B"], **r)
+    return proj, RigidTransform(pose.compose(make_translation(vol.center)).matrix)
+
+
+def sw_bounds(name, vol_shape, x, B, R, Iu, Iv, k0=0, k1=None):
+    """(bytes, f32 operations) of one K1-K4 call on ``x`` (path_inputs)
+    over the slab range [k0, k1): each input read and each output written
+    once; K1 8 and K4 16 operations per active sample, K2 12 and K3 16 per
+    pixel."""
+    M, Wd, L = vol_shape
+    k1 = M if k1 is None else k1
+    vol_b = (k1 - k0) * Wd * L * 2
+    if name == "sw_accumulate":
+        return vol_b + B * 8 * 4 + B * Iu * Iv * 4, 8 * active_samples(vol_shape, x, k0, k1)
+    if name == "sw_accumulate_adjoint":
+        return (vol_b + B * Iu * Iv * 2 + B * 8 * 4 + B * (Iu + Iv) * 4,
+                16 * active_samples(vol_shape, x, k0, k1))
+    if name == "sw_warp":
+        return B * Iu * Iv * 4 + 4 * B * R * 4, 12 * B * R
+    return B * Iu * Iv * 4 + 6 * B * R * 4, 16 * B * R
+
+
+def phase_trainer_shearwarp(hu, aff, dev="cuda", time_ms=cuda_time_ms):
+    """K1-K4 at the trainer's shape (TRAINER["B"] poses at 128^2 on the
+    256^3 CT): single-channel, and as the masked stack with its label slab
+    bounds (K1/K4 once per channel, K2/K3 over the C·B fold). Held against
+    their plain versions with bf16=False (phase_kernels' tolerances) on the
+    first TRAINER_CHECKED images of each channel, eleven calls bit-identical,
+    timed by CUDA events (beside one call of the plain version on all images)
+    and, on the card, torch.profiler device time, each with its bound.
+    -> name -> {"single": record, "masked": record}."""
+    import torch
+    from xvr_tpu_torch.render import _cuda
+    from xvr_tpu_torch.render import shearwarp as sw
+
+    proj, pose = sw_trainer_inputs(hu, aff, dev=dev)
+    x = path_inputs(proj, pose, seed=3)
+    Iu, Iv = x["grid"]
+    B, R = x["uc"].shape
+    n = TRAINER_CHECKED
+    stack = proj.prepare_for_shearwarp()  # (C, M, Wd, L): the full density, then the labels
+    bounds = proj.shearwarp_bounds
+    vol_shape = tuple(stack.shape[1:])
+    args = (x["s"], x["sgn"], x["u0"], x["du"], x["v0"], x["dv"])
+    head64 = tuple(a[:n].double() for a in args)
+    head = tuple(a[:n] for a in args)
+    kw = dict(Iu=Iu, Iv=Iv, eps=1.0)
+    ibar = sw._warp_transpose(x["g"] * x["ws"], x["uc"], x["vc"], grid_shape=(Iu, Iv))
+    det = TRAINER["height"]
+    fmt = lambda ms: "not measured" if ms is None else f"{ms:.4f} ms"  # noqa: E731
+    log(f"  trainer shear-warp: perm {proj.pallas_perm}, label slab bounds {bounds}, grid "
+        f"{Iu}x{Iv}, B={B}, R={R}")
+
+    def acc(c, *a):
+        return sw.accumulate(stack[c], *a, k0=bounds[c][0], k1=bounds[c][1], **kw)
+
+    def adj(c, *a):
+        return sw.accumulate_adjoint(stack[c], *a, k0=bounds[c][0], k1=bounds[c][1], **kw)
+
+    out = {}
+    for variant, chans in (("single", [0]), ("masked", list(range(stack.shape[0])))):
+        C = len(chans)
+        tag = f"trainer {variant} B={B} det {det}^2 grid {Iu}x{Iv}"
+        errs = dict.fromkeys(SW_KERNELS, 0.0)
+        I = torch.stack([acc(c, *args) for c in chans])
+        for c in chans:
+            k0, k1 = bounds[c]
+            r1 = sw._accumulate(stack[c], *head64, bf16=False, k0=k0, k1=k1, **kw)
+            errs["sw_accumulate"] = max(errs["sw_accumulate"], check(
+                "K1 sw_accumulate", I[c, :n].double(), r1, f"{tag} channel {c} slabs [{k0},{k1})",
+                2e-5 * float(r1.abs().max()), 2e-4))
+            same_bits("K1 sw_accumulate", I[c], partial(acc, c, *args), f"{tag} channel {c}")
+            k4 = adj(c, *args, ibar)
+            r4 = sw._accumulate_adjoint(stack[c], *head, ibar[:n], bf16=False, k0=k0, k1=k1, **kw)
+            errs["sw_accumulate_adjoint"] = max(errs["sw_accumulate_adjoint"], check(
+                "K4 sw_accumulate_adjoint", k4[:n], r4, f"{tag} channel {c} slabs [{k0},{k1})",
+                1e-4 * float(r4.abs().max()), 1e-3))
+            same_bits("K4 sw_accumulate_adjoint", k4, partial(adj, c, *args, ibar),
+                      f"{tag} channel {c}")
+        # K2/K3 over the fold of the channels, as the render launches them
+        If = I.reshape(C * B, Iu, Iv)
+        ucf, vcf, wsf = (a.repeat(C, 1).contiguous() for a in (x["uc"], x["vc"], x["ws"]))
+        k2 = sw.warp(If, ucf, vcf, wsf)
+        k3 = torch.stack(sw.warp_with_grads(If, ucf, vcf, wsf))
+        for c in chans:
+            rows = slice(c * B, c * B + n)
+            w64 = [a[rows].double() for a in (ucf, vcf, wsf)]
+            r2 = sw._warp_plain(If[rows].double(), *w64, bf16=False)
+            errs["sw_warp"] = max(errs["sw_warp"], check(
+                "K2 sw_warp", k2[rows].double(), r2, f"{tag} fold rows of channel {c}",
+                1e-5 * float(r2.abs().max())))
+            r3 = sw._warp_with_grads_plain(If[rows].double(), *w64, bf16=False)
+            scale = 1e-5 * float(If[rows].abs().max())
+            for o in range(3):
+                errs["sw_warp_grads"] = max(errs["sw_warp_grads"], check(
+                    f"K3 sw_warp_grads[{o}]", k3[o][rows].double(), r3[o],
+                    f"{tag} fold rows of channel {c}", scale))
+        same_bits("K2 sw_warp", k2, partial(sw.warp, If, ucf, vcf, wsf), tag)
+        same_bits("K3 sw_warp_grads", k3, lambda: torch.stack(sw.warp_with_grads(If, ucf, vcf, wsf)),
+                  tag)
+        calls = {
+            "sw_accumulate": (lambda: [acc(c, *args) for c in chans],
+                              lambda: [sw._accumulate(stack[c], *args, k0=bounds[c][0],
+                                                      k1=bounds[c][1], **kw) for c in chans]),
+            "sw_warp": (partial(sw.warp, If, ucf, vcf, wsf),
+                        partial(sw._warp_plain, If, ucf, vcf, wsf)),
+            "sw_warp_grads": (partial(sw.warp_with_grads, If, ucf, vcf, wsf),
+                              partial(sw._warp_with_grads_plain, If, ucf, vcf, wsf)),
+            "sw_accumulate_adjoint": (
+                lambda: [adj(c, *args, ibar) for c in chans],
+                lambda: [sw._accumulate_adjoint(stack[c], *args, ibar, k0=bounds[c][0],
+                                                k1=bounds[c][1], **kw) for c in chans]),
+        }
+        prof = (profiler_ms({k: v[0] for k, v in calls.items()}) if dev == "cuda"
+                else dict.fromkeys(calls))
+        for name, (call, plain) in calls.items():
+            per_channel = name in ("sw_accumulate", "sw_accumulate_adjoint")
+            nbytes = nops = 0
+            for c in chans if per_channel else [0]:
+                b, o = sw_bounds(name, vol_shape, x, B if per_channel else C * B, R, Iu, Iv,
+                                 *(bounds[c] if per_channel else (0, vol_shape[0])))
+                nbytes, nops = nbytes + b, nops + o
+            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, nops / F32_FLOPS * 1e3
+            rec = dict(shape=f"B={B} det={det}^2 grid={Iu}x{Iv} {variant} C={C}"
+                             + (f" ({C} launches per call)" if per_channel and C > 1 else
+                                f" (fold of {C * B} images)" if C > 1 else ""),
+                       ms=time_ms(call, 20), plain_ms=time_ms(plain, 1, warmup=0),
+                       profiler_ms=prof[name], bound_ms=max(t_bytes, t_ops),
+                       bound_by="bytes" if t_bytes >= t_ops else "operations",
+                       max_abs_err=errs[name], launches_per_call=C if per_channel else 1)
+            log(f"  time {name} [{rec['shape']}]: kernel {rec['ms']:.4f} ms, device "
+                f"{fmt(rec['profiler_ms'])}, plain {rec['plain_ms']:.4f} ms, bound "
+                f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}: {nbytes / 1e6:.1f} MB, "
+                f"{nops / 1e9:.3f} GFLOP)")
+            out.setdefault(name, {})[variant] = rec
     _cuda.reset_launches()
     return out
 
@@ -1519,6 +1706,344 @@ def stage_gaps(records, sw_stats, slab_stats, launches):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 6: training (python -m xvr_tpu_torch.cli train / restart)
+# ---------------------------------------------------------------------------
+
+# scripts/deepfluoro/train/finetune.sh's configuration at full width
+# (ResNet-34, batch 116 at 128^2, a foundation checkpoint by -c); only the
+# step count is cut
+CLI_FINETUNE = ["--r1", "135", "225", "--r2", "-45", "45", "--r3", "-15", "15",
+                "--tx", "-150", "150", "--ty", "450", "1000", "--tz", "-150", "150",
+                "--sdd", "1020", "--height", "128", "--delx", "2.1764375",
+                "--model_name", "resnet34", "--batch_size", "116", "--lr", "0.001",
+                "--n_warmup_itrs", "10", "--n_grad_accum_itrs", "1"]
+# scripts/bench_train.py's unmasked ranges (beta +-30), the same otherwise
+CLI_BENCH_TRAIN = [*CLI_FINETUNE[:4], "-30", "30", *CLI_FINETUNE[6:]]
+TRAIN_WARMUP = 2  # first steps of a run left out of its median host time per step
+TRAIN_PROFILED = 2  # last steps of a run, profiled by torch.profiler and left out too
+
+
+def train_windows(n: int) -> tuple[range, range]:
+    """A run of ``n`` steps -> (step indices whose host times make the
+    median, step indices profiled): the profiled steps come after the timed
+    ones, so that no timed step runs under the profiler."""
+    return range(TRAIN_WARMUP, max(n - TRAIN_PROFILED, TRAIN_WARMUP)), range(max(n - TRAIN_PROFILED, 0), n)
+
+
+def foundation_checkpoint(path, ranges=None, config=MODEL_CONFIG, seed=0, head_std=2e-3,
+                          device="cuda"):
+    """Write a checkpoint (the JAX layout, no trained weights) that stands in
+    for finetune.sh's foundation model: a seeded random backbone, head
+    biases at the middle of ``ranges`` (ZXY degrees, mm about the volume
+    centre) and small random head kernels (``head_std``), so that the
+    predicted poses spread about the middle and their re-renders view the
+    volume. -> path."""
+    import torch
+    from xvr_tpu_torch.geometry import convert
+    from xvr_tpu_torch.models import PoseRegressor, init_pose_regressor
+    from xvr_tpu_torch.state import to_flax_params
+    from xvr_tpu_torch.train import save_checkpoint
+
+    r = FINETUNE_RANGES if ranges is None else ranges
+    mid = {k: (r[k + "min"] + r[k + "max"]) / 2 for k in ("alpha", "beta", "gamma", "tx", "ty", "tz")}
+    mean = convert(torch.tensor([[mid["alpha"], mid["beta"], mid["gamma"]]]),
+                   torch.tensor([[mid["tx"], mid["ty"], mid["tz"]]]),
+                   "euler_angles", "ZXY", degrees=True)
+    rot, xyz = mean.convert(config["parameterization"], config["convention"])
+    gen = torch.Generator().manual_seed(seed)
+    model = PoseRegressor(config["model_name"], config["parameterization"], config["convention"],
+                          config["norm_layer"], config["unit_conversion_factor"])
+    model = init_pose_regressor(model, gen)
+    with torch.no_grad():
+        for head, bias in ((model.rot_head, rot[0]),
+                           (model.xyz_head, xyz[0] / config["unit_conversion_factor"])):
+            head.weight.copy_(torch.randn(head.weight.shape, generator=gen) * head_std)
+            head.bias.copy_(bias)
+    save_checkpoint(path, to_flax_params(model.to(device)), {}, 0, 0, config)
+    return path
+
+
+def route_launches(route) -> dict:
+    """Launches per training step that a route implies: per stratum, the
+    target render and the re-render (K1 per channel, K2 over the fold) and
+    the backward of the re-render (K3 over the fold, K4 per channel); the
+    slab route K5 (K7 masked) twice and K6 once."""
+    C = 1 + len(route["labels"] or ())
+    K = len(route["strata"])
+    if route["renderer"] == "trilinear_pallas":
+        fwd = "slab_channels" if route["labels"] else "slab_forward"
+        return {fwd: 2, "slab_backward": 1}
+    return {"sw_accumulate": 2 * K * C, "sw_warp": 2 * K, "sw_warp_grads": K,
+            "sw_accumulate_adjoint": K * C}
+
+
+class watched_training:
+    """Within the block, each Trainer that trains is kept with, per step,
+    its host time after a device synchronization and its launches (the
+    counts are not reset, so that a run's totals stay whole), its weights
+    and optimizer state as training starts, a torch.profiler record of the
+    last TRAIN_PROFILED steps (after the timed ones: ``train_windows``), and
+    per step the foreground share of the re-render at the predicted poses
+    (the render made with gradients on)."""
+
+    def __enter__(self):
+        import torch
+        from xvr_tpu_torch.render import _cuda
+        from xvr_tpu_torch.train import Trainer
+
+        self.runs, self.orig = [], (Trainer.train, Trainer.step, Trainer.render_batch)
+        cuda = torch.cuda.is_available()
+
+        def sync():
+            if cuda:
+                torch.cuda.synchronize()
+
+        def train(tr, *a, **k):
+            n = tr.n_total_itrs - tr.start_itr
+            timed, profiled = train_windows(n)
+            self.runs.append(dict(
+                trainer=tr, steps=[], prof=None, timed=timed, profiled=profiled, rerender=None,
+                weights={n: p.detach().clone() for n, p in tr.model.named_parameters()},
+                opt_state={k: v if isinstance(v, int) else {n: t.clone() for n, t in v.items()}
+                           for k, v in tr.opt_state.items()}))
+            return self.orig[0](tr, *a, **k)
+
+        def step(tr, itr):
+            run = self.runs[-1]
+            i = len(run["steps"])
+            prof = None
+            if cuda and len(run["profiled"]) and i == run["profiled"][0]:
+                from torch.profiler import ProfilerActivity, profile
+
+                sync()
+                prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                prof.__enter__()
+                run["prof_owner"] = prof
+            sync()
+            before = dict(_cuda.LAUNCHES)
+            t0 = time.perf_counter()
+            out = self.orig[1](tr, itr)
+            sync()
+            ms = (time.perf_counter() - t0) * 1e3
+            rerender, run["rerender"] = run["rerender"], None
+            fg = None if rerender is None else float((rerender.sum(dim=1) > 0).float().mean())
+            run["steps"].append(dict(itr=itr, ms=ms, rerender_fg=fg,
+                                     launches={k: v - before[k] for k, v in _cuda.LAUNCHES.items()}))
+            if cuda and len(run["profiled"]) and i == run["profiled"][-1]:
+                owner = run.pop("prof_owner")
+                owner.__exit__(None, None, None)
+                run["prof"] = step_device_ms(owner, len(run["profiled"]))
+            return out
+
+        def render_batch(tr, *a, **k):
+            out = self.orig[2](tr, *a, **k)
+            if torch.is_grad_enabled():  # the re-render; the target render runs under no_grad
+                self.runs[-1]["rerender"] = out.detach()
+            return out
+
+        Trainer.train, Trainer.step, Trainer.render_batch = train, step, render_batch
+        return self
+
+    def __exit__(self, *exc):
+        from xvr_tpu_torch.train import Trainer
+
+        Trainer.train, Trainer.step, Trainer.render_batch = self.orig
+
+
+def step_device_ms(prof, n_steps, top=6) -> dict:
+    """Device time per step from a torch.profiler record of ``n_steps``
+    steps: each kernel of DEVICE_KERNELS by wrapper name, the rest of the
+    device time (the CNN, the losses, the optimizer) and the total; and on
+    the host, the ATen operator calls per step and the ``top`` host events
+    (operators, CUDA runtime calls) by self CPU time per step."""
+    import re
+
+    from torch.autograd import DeviceType
+
+    total, by_name = 0.0, dict.fromkeys(DEVICE_KERNELS, 0.0)
+    host, calls = [], 0
+    for ev in prof.key_averages():
+        if getattr(ev, "device_type", None) != DeviceType.CUDA:
+            calls += ev.count if ev.key.startswith("aten::") else 0
+            host.append((float(ev.self_cpu_time_total) / 1e3 / n_steps, ev.key))
+            continue
+        t = float(ev.self_device_time_total)
+        total += t
+        for name, kernels in DEVICE_KERNELS.items():
+            if any(re.search(rf"\b{k}\b", ev.key) for k in kernels):
+                by_name[name] += t
+    if not total:
+        return None
+    out = {k: v / 1e3 / n_steps for k, v in by_name.items() if v}
+    out["rest"] = (total - sum(by_name.values())) / 1e3 / n_steps
+    out["total"] = total / 1e3 / n_steps
+    out["aten_calls"] = calls / n_steps
+    out["host_top_ms"] = {k: t for t, k in sorted(host, reverse=True)[:top]}
+    return out
+
+
+def train_run(name, argv, card, kernels):
+    """Run ``python -m xvr_tpu_torch.cli <argv>`` in process with the launch
+    counts of this run alone; print its route, per-step times, device time
+    by kernel, launches per step against the route's, peak memory and the
+    loss, kept share and re-render foreground share of each step. Fails on a
+    non-finite loss, weights that did not move, no checkpoint, re-renders
+    at the predicted poses that miss the volume throughout, or launches that differ
+    from the route's or from step to step (``kernels=()``, without a card,
+    skips the launch checks).
+    -> (run record, stats)."""
+    import numpy as np
+    import torch
+    from xvr_tpu_torch.cli import main
+
+    cuda = torch.cuda.is_available()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() if cuda else 0  # what earlier phases hold
+    with watched_training() as w:
+        t0 = time.perf_counter()
+        _, launches = counted(kernels, lambda: main(argv))
+        wall = time.perf_counter() - t0
+    if len(w.runs) != 1:
+        raise AssertionError(f"{name}: {len(w.runs)} trainings, not 1")
+    run = w.runs[0]
+    tr = run["trainer"]
+    route = tr.route()
+    logged = [json.loads(line) for line in (tr.outpath / "train_log.jsonl").read_text().splitlines()]
+    logged = [m for m in logged if m["itr"] >= tr.start_itr][-len(run["steps"]):]
+    expect = route_launches(route)
+    per_step = [{k: v for k, v in s["launches"].items() if v} for s in run["steps"]]
+    ms = [s["ms"] for s in run["steps"]]
+    fg = [s["rerender_fg"] for s in run["steps"]]
+    timed = [ms[i] for i in run["timed"]] or ms
+    t_steps = (f"{run['timed'][0] + 1}-{run['timed'][-1] + 1}" if len(run["timed"])
+               else f"1-{len(ms)}")
+    stats = dict(wall_s=wall, route=route, steps=len(ms), start_itr=tr.start_itr,
+                 ms_per_step_median=float(np.median(timed)), ms_per_step=ms,
+                 timed_steps=t_steps, profiled_steps=[i + 1 for i in run["profiled"]],
+                 device_ms_per_step=run["prof"],
+                 launches_per_step=per_step[0] if all(p == per_step[0] for p in per_step) else per_step,
+                 launches_per_step_route=expect, rerender_fg_share=fg,
+                 max_memory_allocated_gib=(torch.cuda.max_memory_allocated() / 2**30
+                                           if cuda else None),
+                 memory_held_before_gib=base / 2**30 if cuda else None,
+                 loss=[m["loss"] for m in logged], kept=[m["kept"] for m in logged])
+    log(f"train: {name}: route {route['renderer']}, strata "
+        + ", ".join(f"[{s['alpha'][0]:.0f},{s['alpha'][1]:.0f}]x{s['count']} perm {s['perm']}"
+                    + (f" label slabs {s['bounds'][1:]}" if s["bounds"] else "") for s in route["strata"])
+        + f"; {len(ms)} steps from itr {tr.start_itr}, wall {wall:.2f} s [{card}]")
+    log(f"  host ms per step (synchronized) {[round(t, 2) for t in ms]}; median of steps "
+        f"{t_steps} {stats['ms_per_step_median']:.2f} ms")
+    prof = run["prof"]
+    if prof is not None:
+        kern = {k: v for k, v in prof.items() if k in DEVICE_KERNELS}
+        stats["device_idle_share"] = 1.0 - prof["total"] / stats["ms_per_step_median"]
+        log(f"  device ms per step (torch.profiler, steps {[i + 1 for i in run['profiled']]}): "
+            + ", ".join(f"{k} {v:.3f}" for k, v in kern.items())
+            + f", rest {prof['rest']:.3f}, total {prof['total']:.3f} (kernels' share "
+            f"{sum(kern.values()) / prof['total']:.3f}; idle share of the median step "
+            f"{stats['device_idle_share']:.3f})")
+        log(f"  host: {prof['aten_calls']:.0f} ATen calls per step; most self CPU ms per step: "
+            + ", ".join(f"{k} {v:.2f}" for k, v in prof["host_top_ms"].items()))
+    else:
+        log("  device ms per step: not measured")
+    log(f"  launches per step {json.dumps(stats['launches_per_step'])} (the route's "
+        f"{json.dumps(expect)}); run totals {json.dumps(launches)}")
+    mem = stats["max_memory_allocated_gib"]
+    log(f"  max_memory_allocated {'not measured' if mem is None else f'{mem:.3f} GiB'} (of "
+        f"which held before the run: "
+        f"{'not measured' if mem is None else f'{stats['memory_held_before_gib']:.3f} GiB'})")
+    log(f"  loss {[round(v, 5) for v in stats['loss']]}; kept {[round(v, 3) for v in stats['kept']]}; "
+        f"re-render foreground share {[round(v, 3) for v in fg]}")
+
+    moved = any(not torch.equal(p.detach(), run["weights"][n])
+                for n, p in tr.model.named_parameters())
+    ckpts = sorted(p.name for p in tr.outpath.glob("*.ckpt"))
+    if not all(np.isfinite(stats["loss"])) or len(stats["loss"]) != len(ms):
+        raise AssertionError(f"{name}: losses {stats['loss']}")
+    if not moved:
+        raise AssertionError(f"{name}: the weights did not change")
+    if not ckpts:
+        raise AssertionError(f"{name}: no checkpoint written")
+    if None in fg or not np.mean(fg) > 0:
+        raise AssertionError(f"{name}: the re-render at the predicted poses misses the volume: {fg}")
+    if kernels:
+        bad = [(s["itr"], p) for s, p in zip(run["steps"], per_step) if p != expect]
+        if bad:
+            raise AssertionError(f"{name}: launches per step differ from the route's {expect}: {bad}")
+    return run, stats
+
+
+def phase_training(workdir: Path, hu, aff, card, dev="cuda", kernels=SW_KERNELS,
+                   finetune=CLI_FINETUNE, bench=CLI_BENCH_TRAIN):
+    """``train`` masked (the finetune configuration from a foundation
+    checkpoint, 12 steps, a checkpoint every 4), ``train`` unmasked
+    (bench_train's ranges, the same checkpoint, 8 steps) and ``restart``
+    from the masked run's step-4 checkpoint (8 steps), through the CLI on
+    the 256^3 CT with the two-label mask. ``kernels=()`` skips the launch
+    checks (no card). -> stats."""
+    import numpy as np
+    from xvr_tpu_torch.io import save_nifti
+    from xvr_tpu_torch.train import load_checkpoint
+    from xvr_tpu_torch.state import to_flax_params
+
+    ct, mask = workdir / "train_ct.nii.gz", workdir / "train_mask.nii.gz"
+    save_nifti(ct, hu, aff)
+    save_nifti(mask, train_mask(hu.shape[0]).astype(np.float32), aff)
+    os.environ["XVR_LOG_DIR"] = str(workdir / "runs")
+    base = ["--device", dev]
+    stats = {}
+    # the foundation model finetune.sh starts from (-c): its poses view the volume
+    found = foundation_checkpoint(
+        workdir / "foundation.ckpt", device=dev,
+        config=dict(MODEL_CONFIG, model_name=finetune[finetune.index("--model_name") + 1]))
+
+    out_m = workdir / "train_masked"
+    _, stats["masked"] = train_run(
+        "train masked (finetune)",
+        ["train", "-v", str(ct), "-m", str(mask), "-c", str(found), "-o", str(out_m), *finetune,
+         "--n_total_itrs", "12", "--n_save_every_itrs", "4", *base],
+        card, kernels)
+    out_u = workdir / "train_unmasked"
+    _, stats["unmasked"] = train_run(
+        "train unmasked (bench_train ranges)",
+        ["train", "-v", str(ct), "-c", str(found), "-o", str(out_u), *bench,
+         "--n_total_itrs", "8", "--n_save_every_itrs", "8", *base], card, kernels)
+
+    # restart from the masked run's checkpoint of step 4 (0001.ckpt): it
+    # resumes there with the optimizer state that checkpoint holds
+    mid = workdir / "restart_from.ckpt"
+    mid.write_bytes((out_m / "0001.ckpt").read_bytes())
+    saved = load_checkpoint(mid)
+    run, stats["restart"] = train_run("restart (from the masked run's step 4)",
+                                      ["restart", "-c", str(mid), *base], card, kernels)
+    tr, st = run["trainer"], run["opt_state"]
+    opt = saved["optimizer_state_dict"]
+    adam = opt["inner_opt_state"]["1"]["0"]
+    counts_ok = (st["gradient_step"], st["adam_count"], st["schedule_count"], st["mini_step"]) == (
+        int(opt["gradient_step"]), int(adam["count"]), int(opt["inner_opt_state"]["1"]["1"]["count"]),
+        int(opt["mini_step"]))
+    moments_ok = all(
+        all(np.array_equal(a, b) for a, b in zip(_leaves(to_flax_params(tr.model, st[m])),
+                                                  _leaves(adam[m])))
+        for m in ("mu", "nu"))
+    log(f"train: restart resumed at itr {tr.start_itr} (the checkpoint's {saved['itr']}); "
+        f"optimizer counts read back {counts_ok}, mu/nu bit for bit {moments_ok}; first loss "
+        f"{stats['restart']['loss'][0]:.5f}")
+    if not (tr.start_itr == int(saved["itr"]) and counts_ok and moments_ok
+            and np.isfinite(stats["restart"]["loss"][0])):
+        raise AssertionError("restart did not resume from its checkpoint")
+    stats["restart"].update(resumed_itr=tr.start_itr, optimizer_state_read_back=True)
+    return stats
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in _leaves(tree[k])]
+    return [tree]
+
+
 def main() -> int:
     import torch
 
@@ -1562,6 +2087,7 @@ def main() -> int:
     slab_records, slab_calls = phase_slab_kernels(slab_proj, pose16, pose4, vol.mask)
     records.update(slab_records)
     trainer = phase_trainer_shape(vol)
+    trainer_sw = phase_trainer_shearwarp(hu, aff)
     # device time of every kernel at each shape; grid_sample, K2 and K3 also
     # each profiled alone, so that K2/K3 and their library call compare alike
     fmt = lambda ms: "not measured" if ms is None else f"{ms:.4f} ms"  # noqa: E731
@@ -1592,6 +2118,8 @@ def main() -> int:
                                              SLAB_PATH, no_shearwarp=True)
         # 5. the entry points, in the same scene
         entry_launches, entry_stats = phase_entry_points(workdir, gt_pose, fids, smi)
+        # 6. training: train masked and unmasked, and restart, through the CLI
+        train_stats = phase_training(workdir, hu, aff, smi)
     render_launches, render_stats = label_and_siddon_renders(vol, gt_pose, gt_proj, gt_img, pose4)
     launches = {**{k: sw_launches[k] for k in sw_launches if k.startswith("sw_")},
                 "slab_forward": slab_launches["slab_forward"],
@@ -1624,11 +2152,16 @@ def main() -> int:
             rec["trainer"] = {k: trainer[name].get(k) for k in (
                 "shape", "ms", "profiler_ms", "plain_ms", "bound_ms", "bound_by",
                 "bound_ms_full_plane_ops", "max_abs_err")}
+        if name in trainer_sw:
+            rec["trainer"] = trainer_sw[name]
+            rec["launches_train_step"] = {k: train_stats[k]["launches_per_step"].get(name, 0)
+                                          for k in ("masked", "unmasked")}
         kernels.append(rec)
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print("slices " + json.dumps({"shearwarp": sw_stats, "slab": slab_stats, "renders": render_stats}),
           flush=True)
     print("entry " + json.dumps({**entry_stats, "model_launches": entry_launches}), flush=True)
+    print("train " + json.dumps(train_stats), flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -159,3 +159,136 @@ def test_latest_checkpoint_matches_jax(tmp_path):
         os.utime(tmp_path / name, (1e9 + i, 1e9 + (2 - i) if name != "a.pth" else 2e9))
     assert latest_checkpoint(tmp_path) == j_latest_checkpoint(tmp_path) == tmp_path / "a.pth"
     assert latest_checkpoint(tmp_path / "b.ckpt") == tmp_path / "b.ckpt"
+
+
+# ---------------------------------------------------------------------------
+# optimizer state across packages (the trainer's restart)
+# ---------------------------------------------------------------------------
+
+TRAIN_RANGES = dict(alphamin=165.0, alphamax=195.0, betamin=-15.0, betamax=15.0,
+                    gammamin=-15.0, gammamax=15.0, txmin=-10.0, txmax=10.0,
+                    tymin=150.0, tymax=250.0, tzmin=-10.0, tzmax=10.0)
+
+
+@pytest.fixture
+def two_torch_threads():
+    """Two torch threads for a test that trains: the suite runs several
+    workers on one machine, and each worker's torch would otherwise start a
+    thread per core."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def ct_file(tmp_path_factory):
+    from xvr_tpu.io import save_nifti
+
+    d = tmp_path_factory.mktemp("ct")
+    n, c = 16, 7.5
+    idx = np.arange(n)
+    X, Y, Z = np.meshgrid(idx, idx, idx, indexing="ij")
+    hu = np.where((X - c) ** 2 + (Y - c) ** 2 + (Z - c) ** 2 <= 25.0, 500.0, -1000.0)
+    aff = np.eye(4) * 4.0
+    aff[3, 3] = 1.0
+    aff[:3, 3] = -c * 4.0
+    save_nifti(d / "ct.nii.gz", hu.astype(np.float32), aff)
+    return d / "ct.nii.gz"
+
+
+def _trainer_kwargs(ct_file, tmp_path, every_k):
+    return dict(volpath=ct_file, maskpath=None, outpath=tmp_path / "out", sdd=400.0, height=32,
+                delx=4.0, model_name="resnet18", batch_size=2, lr=1e-2, n_total_itrs=16,
+                n_warmup_itrs=4, n_grad_accum_itrs=every_k, n_save_every_itrs=100,
+                **TRAIN_RANGES)
+
+
+def _optax_tx(every_k, lr=1e-2, warmup=4, total=16):
+    from xvr_tpu.train.schedule import warmup_cosine_schedule as j_schedule
+
+    inner = optax.chain(optax.adaptive_grad_clip(0.01, eps=1e-3),
+                        optax.adam(j_schedule(lr, warmup / every_k, total / every_k)))
+    return optax.MultiSteps(inner, every_k_schedule=every_k)
+
+
+def _seeded_grads(params_tree, rng):
+    return jax.tree.map(lambda p: (1e-2 * rng.normal(size=p.shape)).astype(np.float32), params_tree)
+
+
+def _flat_tree(tree, prefix=()):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flat_tree(v, prefix + (k,)))
+        return out
+    return {prefix: np.asarray(tree)}
+
+
+def _assert_same_tree(got, ref):
+    got, ref = _flat_tree(got), _flat_tree(ref)
+    assert sorted(got) == sorted(ref)
+    for k, r in ref.items():
+        np.testing.assert_allclose(got[k], r, rtol=1e-6, atol=1e-6 * np.abs(r).max(), err_msg=str(k))
+
+
+@pytest.mark.parametrize("every_k", [1, 2])
+def test_jax_optimizer_state_resumes_in_port_trainer(ct_file, tmp_path, every_k, two_torch_threads):
+    """A JAX checkpoint (weights and optax state after 3 gradients) restores
+    into the port's Trainer(reuse_optimizer=True) with its iteration and
+    model number; the next update on equal gradients equals optax's
+    (rtol 1e-6, atol 1e-6 of each leaf's largest magnitude)."""
+    from xvr_tpu_torch.state import from_flax_params
+    from xvr_tpu_torch.train import Trainer
+
+    rng = np.random.default_rng(0)
+    params = jax.tree.map(jnp.asarray, to_flax_params(_seeded_port_model(seed=5)))
+    tx = _optax_tx(every_k)
+    update = jax.jit(tx.update)
+    state = tx.init(params)
+    for _ in range(3):
+        upd, state = update(_seeded_grads(params, rng), state, params)
+        params = optax.apply_updates(params, upd)
+    cfg = _trainer_kwargs(ct_file, tmp_path, every_k)
+    path = j_save_checkpoint(tmp_path / "jax.ckpt", params, state, 3, 2,
+                             {k: str(v) if hasattr(v, "is_file") else v for k, v in cfg.items()})
+    tr = Trainer(**cfg, ckptpath=path, reuse_optimizer=True, device="cpu")
+    assert (tr.start_itr, tr.model_number) == (3, 2)
+    _assert_same_tree(to_flax_params(tr.model), jax.device_get(params))
+    _assert_same_tree(tr.tx.state_dict(tr.opt_state, lambda d: to_flax_params(tr.model, d)),
+                      flax.serialization.to_state_dict(jax.device_get(state)))
+
+    g = _seeded_grads(params, rng)
+    upd, state = update(g, state, params)
+    params = optax.apply_updates(params, upd)
+    tr.tx.step(tr.params, from_flax_params(g), tr.opt_state)
+    _assert_same_tree(to_flax_params(tr.model), jax.device_get(params))
+
+
+def test_port_optimizer_state_restores_in_jax(ct_file, tmp_path, two_torch_threads):
+    """A checkpoint of the port's Trainer restores in the JAX package's
+    ``restore_into(opt_state, ...)``; the next update on equal gradients is
+    the port's."""
+    from xvr_tpu.train.checkpoint import load_checkpoint as j_load_checkpoint
+    from xvr_tpu.train.checkpoint import restore_into
+    from xvr_tpu_torch.state import from_flax_params
+    from xvr_tpu_torch.train import Trainer
+
+    rng = np.random.default_rng(1)
+    tr = Trainer(**_trainer_kwargs(ct_file, tmp_path, 2), device="cpu")
+    tree = to_flax_params(tr.model)
+    for _ in range(5):
+        tr.tx.step(tr.params, from_flax_params(_seeded_grads(tree, rng)), tr.opt_state)
+    tr._checkpoint(5)
+    ckpt = j_load_checkpoint(tmp_path / "out" / "0000.ckpt")
+    params = restore_into(jax.tree.map(jnp.asarray, tree), ckpt["model_state_dict"])
+    tx = _optax_tx(2)
+    state = restore_into(tx.init(params), ckpt["optimizer_state_dict"])
+    assert int(state.mini_step) == 1 and int(state.gradient_step) == 2
+    g = _seeded_grads(tree, rng)
+    upd, state = jax.jit(tx.update)(g, state, params)
+    params = optax.apply_updates(params, upd)
+    tr.tx.step(tr.params, from_flax_params(g), tr.opt_state)
+    _assert_same_tree(to_flax_params(tr.model), jax.device_get(params))
+    _assert_same_tree(tr.tx.state_dict(tr.opt_state, lambda d: to_flax_params(tr.model, d)),
+                      flax.serialization.to_state_dict(jax.device_get(state)))

@@ -11,6 +11,7 @@ tests/test_torch_models.py).
 """
 
 import argparse
+import json
 import importlib.util
 import shutil
 import subprocess
@@ -227,3 +228,194 @@ def test_refusals(workdir, tmp_path):
         pytest.skip("a CUDA device is present: --device cuda is accepted here")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(args)
+
+
+# ---------------------------------------------------------------------------
+# train and restart
+# ---------------------------------------------------------------------------
+
+
+def _command_surface(p: argparse.ArgumentParser, int_range=register.IntRange):
+    """One argparse command's options in :func:`_click_surface`'s terms."""
+    category = {id(a): g.title.removesuffix(" options")
+                for g in p._action_groups for a in g._group_actions}
+    acts = {}
+    for a in p._actions:
+        if isinstance(a, argparse._HelpAction):
+            continue
+        flag = isinstance(a, argparse._StoreTrueAction)
+        acts[a.dest] = dict(
+            opts=sorted(a.option_strings), default=a.default,
+            nargs=1 if a.nargs is None or flag else a.nargs, required=a.required, flag=flag,
+            choices=list(a.choices) if a.choices else None,
+            range=(a.type.lo, a.type.hi) if isinstance(a.type, int_range) else None,
+            category=category[id(a)],
+        )
+    return acts
+
+
+@pytest.mark.parametrize("name", ["train", "restart"])
+def test_train_restart_surface_matches_click(name):
+    """Every option of the JAX package's ``train``/``restart`` click command
+    (name, short flag, default, nargs, choices, help category), and
+    ``--device`` besides; the help groups follow the click category order."""
+    from xvr_tpu.cli.commands import restart as jrestart_mod, train as jtrain_mod
+    from xvr_tpu_torch.cli.commands import restart as trestart_mod, train as ttrain_mod
+
+    cmd = {"train": jtrain_mod.train, "restart": jrestart_mod.restart}[name]
+    theirs = _click_surface(cmd)
+    parser = _subparsers(build_parser())[name]
+    mine = _command_surface(parser)
+    assert mine.pop("device") == dict(opts=["--device"], default="cuda", nargs=1, required=False,
+                                      flag=False, choices=["cuda", "cpu"], range=None,
+                                      category="TPU")
+    assert sorted(mine) == sorted(theirs)
+    for opt, spec in theirs.items():
+        assert mine[opt] == spec, (name, opt, mine[opt], spec)
+    order = {"train": ttrain_mod.CATEGORY_ORDER, "restart": trestart_mod.CATEGORY_ORDER}[name]
+    assert [g.title.removesuffix(" options") for g in parser._action_groups[2:]] == order
+    if name == "train":
+        assert order == cmd.category_order
+
+
+def test_train_restart_help_without_jax_click_or_msgpack(tmp_path):
+    for name in ("jax", "flax", "optax", "click", "msgpack"):
+        (tmp_path / name).mkdir()
+        (tmp_path / name / "__init__.py").write_text(f"raise ImportError('no {name} here')\n")
+    for sub in ("train", "restart"):
+        res = subprocess.run([sys.executable, "-m", "xvr_tpu_torch.cli", sub, "--help"],
+                             cwd=REPO, capture_output=True, text=True, timeout=120,
+                             env={"PYTHONPATH": f"{tmp_path}:{REPO}", "PATH": "/usr/bin:/bin"})
+        assert res.returncode == 0 and "--device" in res.stdout, res.stderr
+    res = subprocess.run([sys.executable, "-m", "xvr_tpu_torch.cli", "--help"], cwd=REPO,
+                         capture_output=True, text=True, timeout=120,
+                         env={"PYTHONPATH": f"{tmp_path}:{REPO}", "PATH": "/usr/bin:/bin"})
+    assert all(c in res.stdout for c in ("train", "restart", "register")), res.stderr
+
+
+@pytest.fixture
+def two_torch_threads():
+    """Two torch threads for a test that trains: the suite runs several
+    workers on one machine, and each worker's torch would otherwise start a
+    thread per core."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def train_data(tmp_path_factory):
+    """tests/test_train.py's tiny dataset: a 24^3 two-tissue sphere and its
+    bone core as label 1."""
+    d = tmp_path_factory.mktemp("train")
+    n = 24
+    c = (n - 1) / 2
+    idx = np.arange(n)
+    X, Y, Z = np.meshgrid(idx, idx, idx, indexing="ij")
+    r2 = (X - c) ** 2 + (Y - c) ** 2 + (Z - c) ** 2
+    hu = np.where(r2 <= (n / 3) ** 2, 200.0, -1000.0).astype(np.float32)
+    hu += np.where(r2 <= (n / 6) ** 2, 800.0, 0.0)
+    aff = np.eye(4) * 4.0
+    aff[3, 3] = 1.0
+    aff[:3, 3] = -c * 4.0
+    save_nifti(d / "volume.nii.gz", hu, aff)
+    save_nifti(d / "mask.nii.gz", np.where(r2 <= (n / 6) ** 2, 1.0, 0.0).astype(np.float32), aff)
+    return d
+
+
+TRAIN_ARGS = ["--r1", "165", "195", "--r2", "-15", "15", "--r3", "-15", "15", "--tx", "-10", "10",
+              "--ty", "150", "250", "--tz", "-10", "10", "--sdd", "400", "--height", "32",
+              "--delx", "4.0", "--model_name", "resnet18", "--batch_size", "3", "--lr", "1e-3",
+              "--n_warmup_itrs", "1", "--n_total_itrs", "2", "--n_grad_accum_itrs", "1",
+              "--n_save_every_itrs", "1", "--device", "cpu"]
+
+
+class _KeptTrainers:
+    """Within the block, every Trainer that trains is kept in ``seen``, and
+    its optimizer state as training starts in ``states``."""
+
+    def __enter__(self):
+        from xvr_tpu_torch.train import Trainer
+
+        self.seen, self.states, self.orig = [], [], Trainer.train
+
+        def spy(tr, *a, **k):
+            self.seen.append(tr)
+            self.states.append({k: (v if isinstance(v, int) else {n: t.clone() for n, t in v.items()})
+                                for k, v in tr.opt_state.items()})
+            return self.orig(tr, *a, **k)
+
+        Trainer.train = spy
+        return self
+
+    def __exit__(self, *exc):
+        from xvr_tpu_torch.train import Trainer
+
+        Trainer.train = self.orig
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_train_then_restart_on_cpu(train_data, tmp_path, monkeypatch, masked, two_torch_threads):
+    """``train --device cpu`` runs 2 steps through the shear-warp route and
+    writes its checkpoints (the optimizer state in optax's layout, read by
+    the JAX package's ``restore_into``); ``restart`` from the step-1
+    checkpoint resumes at its iteration with the optimizer state it saved."""
+    import flax.serialization
+
+    from xvr_tpu.train.checkpoint import restore_into
+    from xvr_tpu_torch.train import load_checkpoint
+
+    monkeypatch.setenv("XVR_FORCE_SHEARWARP", "1")
+    monkeypatch.setenv("XVR_LOG_DIR", str(tmp_path / "runs"))
+    out = tmp_path / "out"
+    mask = ["-m", str(train_data / "mask.nii.gz")] if masked else []
+    with _KeptTrainers() as kept:
+        assert main(["train", "-v", str(train_data / "volume.nii.gz"), *mask, "-o", str(out),
+                     *TRAIN_ARGS]) == 0
+    tr = kept.seen[0]
+    assert tr.projectors[0][0].renderer == "trilinear_fast" and tr.labels == ((1,) if masked else None)
+    assert sorted(p.name for p in out.glob("*.ckpt")) == ["0000.ckpt", "0001.ckpt", "0002.ckpt"]
+    logged = [json.loads(line) for line in (out / "train_log.jsonl").read_text().splitlines()]
+    assert [m["itr"] for m in logged] == [0, 1] and all(np.isfinite(m["loss"]) for m in logged)
+    assert (tmp_path / "runs" / "xvr" / "xvr.jsonl").exists()
+
+    ckpt = load_checkpoint(out / "0001.ckpt")
+    assert ckpt["itr"] == 1 and ckpt["config"]["n_total_itrs"] == 2
+    # the JAX package restores the port's optimizer state into optax's tree
+    import optax
+    from xvr_tpu.train import trainer as jtrainer
+
+    params = jax.tree.map(jnp.asarray, ckpt["model_state_dict"])
+    tx = optax.MultiSteps(optax.chain(optax.adaptive_grad_clip(0.01, eps=1e-3),
+                                      optax.adam(jtrainer.warmup_cosine_schedule(1e-3, 1, 2))), 1)
+    state = restore_into(tx.init(params), ckpt["optimizer_state_dict"])
+    assert int(state.gradient_step) == 1
+    flat = flax.serialization.to_state_dict(state)
+    np.testing.assert_array_equal(
+        np.asarray(flat["inner_opt_state"]["1"]["0"]["mu"]["params"]["Dense_1"]["bias"]),
+        ckpt["optimizer_state_dict"]["inner_opt_state"]["1"]["0"]["mu"]["params"]["Dense_1"]["bias"])
+
+    with _KeptTrainers() as kept:
+        assert main(["restart", "-c", str(out / "0001.ckpt"), "--device", "cpu"]) == 0
+    rt, st = kept.seen[0], kept.states[0]
+    assert rt.start_itr == 1 and rt.config["reuse_optimizer"] is True
+    saved = ckpt["optimizer_state_dict"]
+    assert (st["gradient_step"], st["adam_count"], st["schedule_count"]) == (
+        int(saved["gradient_step"]), int(saved["inner_opt_state"]["1"]["0"]["count"]),
+        int(saved["inner_opt_state"]["1"]["1"]["count"]))
+    from xvr_tpu_torch.state import to_flax_params
+
+    for moment in ("mu", "nu"):
+        got = to_flax_params(rt.model, st[moment])["params"]["Dense_0"]["kernel"]
+        np.testing.assert_array_equal(
+            got, saved["inner_opt_state"]["1"]["0"][moment]["params"]["Dense_0"]["kernel"])
+    logged = [json.loads(line) for line in (out / "train_log.jsonl").read_text().splitlines()]
+    assert [m["itr"] for m in logged] == [0, 1, 1] and np.isfinite(logged[-1]["loss"])
+
+
+def test_train_refuses_a_mesh(train_data, tmp_path, monkeypatch, two_torch_threads):
+    monkeypatch.setenv("XVR_LOG_DIR", str(tmp_path / "runs"))
+    with pytest.raises(NotImplementedError, match="device mesh"):
+        main(["train", "-v", str(train_data / "volume.nii.gz"), "-o", str(tmp_path / "o"),
+              *TRAIN_ARGS, "--n_devices", "2"])

@@ -522,3 +522,94 @@ def test_register_entry_points_on_the_card(cuda, tmp_path):
                       "--max_restarts", "0", "--verbose", "0"])
     assert all(launches[k] > 0 for k in smoke.SW_KERNELS)
     assert stats["model"]["mtre_final_mm"] < 1.0 and stats["cnn"]["forward_ms"] > 0
+
+
+# ---------------------------------------------------------------------------
+# the trainer
+# ---------------------------------------------------------------------------
+
+
+def _train_scene(tmp_path, n=64):
+    """chip_smoke.py's phantom at n^3 with the trainer's two-label mask, as
+    NIfTI files."""
+    from xvr_tpu_torch.io import save_nifti
+
+    smoke = _smoke()
+    hu, aff, _ = smoke.build_phantom(n)
+    save_nifti(tmp_path / "ct.nii.gz", hu, aff)
+    save_nifti(tmp_path / "mask.nii.gz", smoke.train_mask(n).astype(np.float32), aff)
+    return tmp_path / "ct.nii.gz", tmp_path / "mask.nii.gz"
+
+
+def _small_trainer(ct, mask, out, device, **kw):
+    from xvr_tpu_torch.train import Trainer
+
+    smoke = _smoke()
+    cfg = dict(volpath=ct, maskpath=mask, outpath=out, sdd=1020.0, height=64, delx=4.0,
+               model_name="resnet18", batch_size=4, n_total_itrs=4, n_warmup_itrs=1,
+               n_grad_accum_itrs=1, n_save_every_itrs=100, lr=1e-3, p_augmentation=0.0)
+    cfg.update({**smoke.FINETUNE_RANGES, **kw})
+    return Trainer(**cfg, device=device)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_trainer_slab_fallback_on_the_card(cuda, tmp_path, monkeypatch, masked):
+    """The slab route (every shear-warp stratum declined by hand: on one
+    subject no ranges make them all decline while the slab gate accepts): a step
+    launches K5 twice and K6 once unmasked, K7 twice and K6 once masked, and
+    trains finitely."""
+    from xvr_tpu_torch.render import _cuda
+    from xvr_tpu_torch.train import Trainer
+
+    monkeypatch.setattr(Trainer, "_try_shearwarp_strata", lambda self, edges: False)
+    ct, mask = _train_scene(tmp_path)
+    # the slab gate (rays within 45 degrees of the march axis) declines the
+    # finetune ranges; these narrower ones pass it
+    narrow = dict(alphamin=170.0, alphamax=190.0, betamin=-10.0, betamax=10.0,
+                  gammamin=-5.0, gammamax=5.0)
+    tr = _small_trainer(ct, mask if masked else None, tmp_path / "out", "cuda", **narrow)
+    route = tr.route()
+    assert route["renderer"] == "trilinear_pallas"
+    expect = _smoke().route_launches(route)
+    assert expect == ({"slab_channels": 2, "slab_backward": 1} if masked
+                      else {"slab_forward": 2, "slab_backward": 1})
+    for itr in range(2):
+        _cuda.reset_launches()
+        m = tr.step(itr)
+        torch.cuda.synchronize()
+        assert {k: v for k, v in _cuda.LAUNCHES.items() if v} == expect
+        assert all(np.isfinite(float(v)) for v in m.values())
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_trainer_step_on_the_card_matches_cpu(cuda, tmp_path, monkeypatch, masked):
+    """One shear-warp training step on the card (K1-K4, TF32 off) against
+    the same step on the CPU (the plain versions) at equal weights and
+    draws: loss and metrics to rtol 2e-2 (the kernels compute in float32
+    from the bf16 table, the CPU path rounds its partial products to bf16
+    as the JAX package does; mncc also to 2e-2 absolute), and the gradient
+    to cosine 0.99 over the parameter tree."""
+    monkeypatch.setenv("XVR_FORCE_SHEARWARP", "1")
+    ct, mask = _train_scene(tmp_path)
+    m = mask if masked else None
+    card = _small_trainer(ct, m, tmp_path / "card", "cuda")
+    cpu = _small_trainer(ct, m, tmp_path / "cpu", "cpu")
+    assert card.route() == cpu.route() and card.route()["renderer"] == "trilinear_fast"
+    cpu.model.load_state_dict({k: v.cpu() for k, v in card.model.state_dict().items()})
+    draws = cpu.draw(torch.Generator().manual_seed(5))
+    moved = {"pose": draws["pose"].to(cuda), "contrast": draws["contrast"].to(cuda),
+             "aug": {k: v.to(cuda) for k, v in draws["aug"].items()}}
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        lc, mc, gc = card.loss_and_grads(card.projectors[0], card.centers[0], moved)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    lr, mr, gr = cpu.loss_and_grads(cpu.projectors[0], cpu.centers[0], draws)
+    assert abs(float(lc) - float(lr)) <= 2e-2 * abs(float(lr))
+    for k in mr:
+        atol = 2e-2 if k == "mncc" else 1e-6
+        assert abs(float(mc[k]) - float(mr[k])) <= atol + 2e-2 * abs(float(mr[k])), k
+    a = torch.cat([gc[k].cpu().ravel() for k in gr]).double()
+    b = torch.cat([gr[k].ravel() for k in gr]).double()
+    assert float(a @ b / (a.norm() * b.norm())) >= 0.99

@@ -269,8 +269,13 @@ def test_unported_options_raise(scene):
     args = (_t(scene["density"]), _t(scene["affinv"]), tsrc, ttgt)
     with pytest.raises(ValueError, match="unknown backward"):
         tsw.raymarch_trilinear_fast(*args, perm=scene["perm"], backward="scan")
-    with pytest.raises(NotImplementedError, match="channel"):
-        tsw.raymarch_trilinear_fast(*args, perm=scene["perm"],
+    # label channels are ported (tests/test_torch_channels.py); only the slab
+    # backward refuses them, as the JAX package's does
+    chans = tsw.raymarch_trilinear_fast(*args, perm=scene["perm"],
+                                        mask=torch.ones(N, N, N, dtype=torch.int32), labels=(1,))
+    assert tuple(chans.shape) == (ttgt.shape[0], 2, ttgt.shape[1])
+    with pytest.raises(ValueError, match="channel"):
+        tsw.raymarch_trilinear_fast(*args, perm=scene["perm"], backward="slab",
                                     mask=torch.ones(N, N, N, dtype=torch.int32), labels=(1,))
     with pytest.raises(NotImplementedError, match="grid_bounds"):
         tsw.raymarch_trilinear_fast(*args, perm=scene["perm"], grid_bounds=(0, 1, 0, 1, 1))

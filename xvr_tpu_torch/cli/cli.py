@@ -1,9 +1,10 @@
 """The port's command line: ``python -m xvr_tpu_torch.cli``.
 
 Counterpart of ``xvr_tpu.cli.cli`` on ``argparse`` (the port runs without
-``click``): ``-v/--version`` and the ``register {model,dicom,fixed,restart}``
-group. ``train``, ``restart``, ``animate`` and ``dcm2nii`` are not ported
-yet. A ``--device cuda`` request on a machine with no CUDA device fails.
+``click``): ``-v/--version``, ``train``, ``restart`` and the ``register
+{model,dicom,fixed,restart}`` group. ``animate`` and ``dcm2nii`` are not
+ported yet. A ``--device cuda`` request on a machine with no CUDA device
+fails.
 """
 
 from __future__ import annotations
@@ -12,6 +13,8 @@ import argparse
 
 from .. import __version__
 from .commands.register import add_register_parser
+from .commands.restart import add_restart_parser
+from .commands.train import add_train_parser
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -21,7 +24,10 @@ def build_parser() -> argparse.ArgumentParser:
     )
     parser.add_argument("-v", "--version", action="version",
                         version=f"%(prog)s, version {__version__}")
-    sub = parser.add_subparsers(dest="command", required=True, metavar="{register}")
+    sub = parser.add_subparsers(dest="command", required=True,
+                                metavar="{train,restart,register}")
+    add_train_parser(sub)
+    add_restart_parser(sub)
     add_register_parser(sub)
     return parser
 

@@ -1,3 +1,4 @@
 from .registrar import RegistrarArgs
+from .trainer import TrainerArgs
 
-__all__ = ["RegistrarArgs"]
+__all__ = ["RegistrarArgs", "TrainerArgs"]

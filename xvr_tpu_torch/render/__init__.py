@@ -6,13 +6,15 @@ from .shearwarp import (
     raymarch_trilinear_fast,
     raymarch_trilinear_shearwarp,
 )
-from .volume import Volume, transform_hu_to_density
+from .volume import Volume, load_example_ct, make_test_volume, transform_hu_to_density
 from .xla import raymarch_siddon, raymarch_trilinear
 
 __all__ = [
     "Projector",
     "Volume",
     "initialize_drr",
+    "load_example_ct",
+    "make_test_volume",
     "orientation_transform",
     "raymarch_siddon",
     "raymarch_siddon_fast",

@@ -184,25 +184,27 @@ class Projector:
         ``differentiable``, else the forward-only ``{flavor}_shearwarp``),
         fixing the volume-axis permutation from a representative pose.
         Returns ``self`` unchanged when probe rays exceed ~70 degrees of the
-        march axis (steepness > 2.8), as the JAX package does. The GPU warp
-        needs no gather window, so none is measured."""
+        march axis (steepness > 2.8), as the JAX package does. With a labelmap
+        the label channels' slab ranges are fixed here (``shearwarp_bounds``).
+        The GPU warp needs no gather window, so none is measured."""
         if flavor is None:
             flavor = "siddon" if self.renderer.startswith("siddon") else "trilinear"
         if flavor not in ("trilinear", "siddon"):
             raise ValueError(f"unknown shear-warp flavor {flavor!r}")
-        if self.labels is not None and self.volume.mask is not None:
-            raise NotImplementedError(
-                "label-channel shear-warp is not ported to xvr_tpu_torch yet "
-                "(ROADMAP: label-channel shear-warp stacks)"
-            )
         perm = choose_permutation_for_pose(self._mean_pose_R(reference_pose),
                                            self.affine_inverse_host())
+        chan_bounds = None
+        if self.labels is not None and self.volume.mask is not None:
+            from .shearwarp import channel_slab_bounds
+
+            # compact label channels march only their bounding slab range
+            chan_bounds = channel_slab_bounds(self.volume.mask, self.labels, perm)
         proj = self.replace(
             renderer=f"{flavor}_fast" if differentiable else f"{flavor}_shearwarp",
             pallas_perm=perm,
             pallas_remap=False,
             shearwarp_grid=tuple(int(x) for x in grid_shape) if grid_shape else None,
-            shearwarp_bounds=None,
+            shearwarp_bounds=chan_bounds,
         )
         probes = probe_poses if probe_poses is not None else reference_pose
         if probes is not None:
@@ -263,7 +265,8 @@ class Projector:
 
     def prepare_for_shearwarp(self, density: torch.Tensor | None = None) -> torch.Tensor:
         """Permute and cast the density for the shear-warp renderer (hoist
-        out of optimization loops; pass as ``prepared``)."""
+        out of optimization loops; pass as ``prepared``). With a labelmap,
+        the (C, M, Wd, L) channel stack."""
         from .shearwarp import prepare_shearwarp
 
         density = self.density if density is None else density
@@ -287,6 +290,7 @@ class Projector:
                 prepared=prepared,
                 grid_shape=self.shearwarp_grid,
                 mask=mask, labels=labels, eps=eps,
+                chan_bounds=self.shearwarp_bounds if labels is not None else None,
             )
             if self.renderer.endswith("_fast"):
                 return raymarch_trilinear_fast(density, self.affine_inverse, source, target, **kwargs)

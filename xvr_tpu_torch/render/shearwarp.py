@@ -35,12 +35,22 @@ the JAX package to f32 round-off; with ``bf16=False`` they compute the
 kernels' own arithmetic (f32, or float64 for a reference, from the bf16
 volume), which is what the kernels are checked against on the card.
 
+**Label channels.** With ``mask``/``labels`` the render has ``C = 1 +
+len(labels)`` channels. :func:`prepare_shearwarp` stacks the full density and
+the per-label masked densities; each channel accumulates (one K1 launch per
+channel) over its own slab range (:func:`channel_slab_bounds`), the channels
+fold into the warp's batch (K2 and K3 over C·B images), and the backward sums
+the warp partials over the channels and runs K4 once per channel with its
+bounds. The public channels are ``[background, labels...]``: channel 0 is
+emitted as the full render minus the label sum, outside the autograd
+Function, so that autograd carries that subtraction's cotangent into it.
+
 ``backward="slab"`` pairs the shear-warp forward with the slab kernel's VJP
 (K6, :mod:`~xvr_tpu_torch.render.pallas`), as the JAX package's cross-check
-does. **Not ported yet** (each raises ``NotImplementedError``): label-channel
-stacks and ``grid_bounds`` ray sharding. ``warp_window`` and ``warp_remap``
-size TPU gather tiles; the GPU warp reads any grid cell, so they are
-accepted and ignored.
+does (single-channel only). ``grid_bounds`` ray sharding waits for the
+device mesh and raises ``NotImplementedError``. ``warp_window`` and
+``warp_remap`` size TPU gather tiles; the GPU warp reads any grid cell, so
+they are accepted and ignored.
 """
 
 from __future__ import annotations
@@ -61,10 +71,37 @@ def _not_ported(what: str, item: str):
 
 def prepare_shearwarp(density: torch.Tensor, perm, mask=None, labels=None) -> torch.Tensor:
     """Permute a density grid to (march, window, lane) order and cast bf16.
-    O(volume): hoist out of optimization loops (``prepared=``)."""
-    if mask is not None and labels is not None:
-        raise _not_ported("label-channel shear-warp stacks", "label-channel shear-warp stacks")
-    return density.permute(*perm).contiguous().to(torch.bfloat16)
+    O(volume): hoist out of optimization loops (``prepared=``).
+
+    With ``mask``/``labels``: the (C, M, Wd, L) stack, C = 1 + len(labels),
+    of the FULL density (channel 0) and the per-label masked densities."""
+    vol = density.permute(*perm).contiguous().to(torch.bfloat16)
+    if mask is None or labels is None:
+        return vol
+    m = mask.permute(*perm)
+    fg = torch.stack([m == int(lab) for lab in labels]).to(torch.bfloat16)
+    return torch.cat([vol[None], vol[None] * fg]).contiguous()
+
+
+def channel_slab_bounds(mask, labels, perm, quantum: int = 16) -> tuple[tuple[int, int], ...]:
+    """Per-channel march-axis slab ranges ``[k0, k1)`` of a channel render,
+    on the host: channel 0 (the full density) spans every slab, each label
+    channel the bounding range of its voxels along the permuted march axis,
+    padded to ``quantum``. Slabs outside a label's range add exactly zero."""
+    if isinstance(mask, torch.Tensor):
+        mask = mask.detach().cpu().numpy()
+    m = np.transpose(np.asarray(mask), perm)
+    M = m.shape[0]
+    out = [(0, M)]
+    for lab in labels:
+        hit = np.flatnonzero(np.any(m == lab, axis=(1, 2)))
+        if hit.size == 0:
+            out.append((0, min(quantum, M)))
+            continue
+        k0 = int(hit[0]) // quantum * quantum
+        k1 = min(M, -(-(int(hit[-1]) + 1) // quantum) * quantum)
+        out.append((k0, k1))
+    return tuple(out)
 
 
 def _hat(x: torch.Tensor, eps: float) -> torch.Tensor:
@@ -356,13 +393,51 @@ def _march_sign(d_p) -> torch.Tensor:
     return torch.sign(d_p[..., 0].mean(dim=1)).detach()
 
 
-def _render_fields(prepared, s_p, d_p, wscale, grid_shape, eps):
-    """Forward: accumulate (K1) then warp (K2). Returns (out, I)."""
+def _accumulate_any(prepared, s, sgn, u0, du, v0, dv, *, Iu: int, Iv: int, eps: float,
+                    bounds=None) -> torch.Tensor:
+    """K1 over a (M, Wd, L) volume -> (B, Iu, Iv), or once per channel of a
+    (C, M, Wd, L) stack, each over its slab range ``bounds[c]`` ->
+    (C, B, Iu, Iv)."""
+    kw = dict(Iu=Iu, Iv=Iv, eps=eps)
+    if prepared.ndim == 3:
+        return accumulate(prepared, s, sgn, u0, du, v0, dv, **kw)
+    C, M = prepared.shape[0], prepared.shape[1]
+    bounds = ((0, M),) * C if bounds is None else bounds
+    return torch.stack([
+        accumulate(prepared[c], s, sgn, u0, du, v0, dv, k0=int(bounds[c][0]),
+                   k1=int(bounds[c][1]), **kw)
+        for c in range(C)
+    ])
+
+
+def _fold(I, *rays):
+    """A (C, B, Iu, Iv) channel image and (B, R) ray fields -> the (C·B, ...)
+    batch the warps take (every channel shares the warp coordinates)."""
+    C, B = I.shape[0], I.shape[1]
+    return (I.reshape(C * B, *I.shape[2:]), *(x.repeat(C, 1).contiguous() for x in rays))
+
+
+def _render_fields(prepared, s_p, d_p, wscale, grid_shape, eps, chan_bounds=None):
+    """Forward: accumulate (K1) then warp (K2). Returns (out, I): out (B, R),
+    or (B, C, R) channels [full, labels...] for a channel stack."""
     Iu, Iv = grid_shape
     _, u0, du, v0, dv, uc, vc = _slope_pieces(d_p, Iu, Iv)
     sgn = _march_sign(d_p)
-    I = accumulate(prepared, s_p[:, 0, :], sgn, u0, du, v0, dv, Iu=Iu, Iv=Iv, eps=eps)
-    return warp(I, uc, vc, wscale), I
+    I = _accumulate_any(prepared, s_p[:, 0, :], sgn, u0, du, v0, dv, Iu=Iu, Iv=Iv, eps=eps,
+                        bounds=chan_bounds)
+    if I.ndim == 3:
+        return warp(I, uc, vc, wscale), I
+    C, B = I.shape[0], I.shape[1]
+    out = warp(*_fold(I, uc, vc, wscale))
+    return out.reshape(C, B, -1).transpose(0, 1), I
+
+
+def _public_channels(out: torch.Tensor) -> torch.Tensor:
+    """Channels [full, labels...] -> the public [background, labels...]:
+    background = full - sum(labels) (exact: the labels are disjoint)."""
+    if out.ndim != 3:
+        return out
+    return torch.cat([out[:, :1] - out[:, 1:].sum(dim=1, keepdim=True), out[:, 1:]], dim=1)
 
 
 class _FastRender(torch.autograd.Function):
@@ -371,9 +446,9 @@ class _FastRender(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, prepared, affine_inverse, source, target, cfg):
-        grid_shape, perm, eps, _ = cfg
+        grid_shape, perm, eps, _, chan_bounds = cfg
         s_p, d_p, wscale = _decompose(affine_inverse, source, target, perm)
-        out, I = _render_fields(prepared, s_p, d_p, wscale, grid_shape, eps)
+        out, I = _render_fields(prepared, s_p, d_p, wscale, grid_shape, eps, chan_bounds)
         ctx.save_for_backward(prepared, affine_inverse, source, target, I)
         ctx.cfg = cfg
         return out
@@ -381,7 +456,7 @@ class _FastRender(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         prepared, affine_inverse, source, target, I = ctx.saved_tensors
-        grid_shape, perm, eps, backward = ctx.cfg
+        grid_shape, perm, eps, backward, chan_bounds = ctx.cfg
         Iu, Iv = grid_shape
         with torch.enable_grad():
             src = source.detach().requires_grad_(True)
@@ -400,16 +475,37 @@ class _FastRender(torch.autograd.Function):
         dp, ws = d_p.detach(), wscale.detach()
         safe_d0, u0, du, v0, dv, uc, vc = _slope_pieces(dp, Iu, Iv)
         sgn = _march_sign(dp)
-        g = g.contiguous()
-        bil, dWdu, dWdv = warp_with_grads(I, uc, vc, ws)
-        gw = g * ws
-        Ibar = _warp_transpose(gw, uc, vc, grid_shape=grid_shape)
-        g_s_scalar = accumulate_adjoint(
-            prepared, s_p[:, 0, :].detach(), sgn, u0, du, v0, dv, Ibar, Iu=Iu, Iv=Iv, eps=eps
-        )
-        g_ws = g * bil
-        g_u = gw * dWdu / du[:, None]
-        g_v = gw * dWdv / dv[:, None]
+        s = s_p[:, 0, :].detach()
+        kw = dict(Iu=Iu, Iv=Iv, eps=eps)
+        if I.ndim == 4:
+            # channels fold into the warp batch; partials sum over C, and K4
+            # runs once per channel over its slab range
+            C, B = I.shape[0], I.shape[1]
+            If, ucf, vcf, wsf = _fold(I, uc, vc, ws)
+            gf = g.transpose(0, 1).reshape(C * B, -1).contiguous()
+            bil, dWdu, dWdv = warp_with_grads(If, ucf, vcf, wsf)
+            gwf = gf * wsf
+            Ibar = _warp_transpose(gwf, ucf, vcf, grid_shape=grid_shape).reshape(C, B, Iu, Iv)
+
+            def csum(x):
+                return x.reshape(C, B, -1).sum(dim=0)
+
+            g_ws, g_uc, g_vc = csum(gf * bil), csum(gwf * dWdu), csum(gwf * dWdv)
+            cb = ((0, prepared.shape[1]),) * C if chan_bounds is None else chan_bounds
+            g_s_scalar = sum(
+                accumulate_adjoint(prepared[c], s, sgn, u0, du, v0, dv, Ibar[c],
+                                   k0=int(cb[c][0]), k1=int(cb[c][1]), **kw)
+                for c in range(C)
+            )
+        else:
+            g = g.contiguous()
+            bil, dWdu, dWdv = warp_with_grads(I, uc, vc, ws)
+            gw = g * ws
+            Ibar = _warp_transpose(gw, uc, vc, grid_shape=grid_shape)
+            g_s_scalar = accumulate_adjoint(prepared, s, sgn, u0, du, v0, dv, Ibar, **kw)
+            g_ws, g_uc, g_vc = g * bil, gw * dWdu, gw * dWdv
+        g_u = g_uc / du[:, None]
+        g_v = g_vc / dv[:, None]
         g_d0 = -(g_u * dp[..., 1] + g_v * dp[..., 2]) / (safe_d0 * safe_d0)
         g_d = torch.stack([g_d0, g_u / safe_d0, g_v / safe_d0], dim=-1)
         g_s = torch.zeros_like(s_p)
@@ -419,14 +515,12 @@ class _FastRender(torch.autograd.Function):
 
 
 def _resolve(density, affine_inverse, source, target, det_shape, perm, prepared, grid_shape,
-             mask, labels, chan_bounds, grid_bounds):
+             mask, labels, grid_bounds):
     """Shared argument handling of the entry points."""
     if source.shape[-2] != 1:
         raise ValueError("shear-warp requires a point source: source (B, 1, 3)")
     if grid_bounds is not None:
         raise _not_ported("grid_bounds (ray-sharded shear-warp)", "device mesh")
-    if chan_bounds is not None or (prepared is not None and prepared.ndim == 4):
-        raise _not_ported("label-channel shear-warp stacks", "label-channel shear-warp stacks")
     if perm is None:
         d_mean = (target.mean(dim=(0, 1)) - source.mean(dim=(0, 1))).detach().cpu().numpy()
         A = affine_inverse.detach().cpu().numpy()
@@ -445,23 +539,32 @@ def _resolve(density, affine_inverse, source, target, det_shape, perm, prepared,
     return perm, prepared, tuple(int(x) for x in grid_shape)
 
 
+def _bounds(chan_bounds):
+    return None if chan_bounds is None else tuple((int(a), int(b)) for a, b in chan_bounds)
+
+
 def raymarch_trilinear_shearwarp(
     density, affine_inverse, source, target, det_shape=None, perm=None, prepared=None,
     grid_shape=None, warp_window: int = 48, unroll: int = 8, mask=None, labels=None,
     eps: float = 1.0, chan_bounds=None, warp_remap: bool = False, grid_bounds=None,
 ) -> torch.Tensor:
-    """Forward-only shear-warp trilinear DRR: (B, R) line integrals in mm.
+    """Forward-only shear-warp trilinear DRR: (B, R) line integrals in mm,
+    or (B, C, R) channels [background, labels...] with ``mask``/``labels``
+    (or a channel stack as ``prepared``); ``chan_bounds`` from
+    :func:`channel_slab_bounds` restricts each label channel to its slabs.
 
     ``source`` (B, 1, 3) (a point source) and ``target`` (B, R, 3) in world
     mm. ``warp_window``, ``unroll`` and ``warp_remap`` are accepted for
     signature parity and ignored."""
     perm, prepared, grid_shape = _resolve(
         density, affine_inverse, source, target, det_shape, perm, prepared, grid_shape,
-        mask, labels, chan_bounds, grid_bounds,
+        mask, labels, grid_bounds,
     )
     with torch.no_grad():
         s_p, d_p, wscale = _decompose(affine_inverse, source, target, perm)
-        return _render_fields(prepared, s_p, d_p, wscale, grid_shape, float(eps))[0]
+        out = _render_fields(prepared, s_p, d_p, wscale, grid_shape, float(eps),
+                             _bounds(chan_bounds))[0]
+        return _public_channels(out)
 
 
 def raymarch_siddon_shearwarp(*args, eps: float = 0.25, **kwargs) -> torch.Tensor:
@@ -478,17 +581,20 @@ def raymarch_trilinear_fast(
     """Differentiable fast trilinear render: the shear-warp forward (K1, K2)
     with the analytic shear-warp adjoint (K3, warp transpose, K4) as its
     backward, or with ``backward="slab"`` the slab kernel's VJP (K6), a
-    cross-check. Gradients flow to ``source`` and ``target``. ``packed`` and
-    ``slab_window`` are accepted for signature parity: both backwards read
-    ``prepared``."""
+    cross-check (single-channel only). Gradients flow to ``source`` and
+    ``target``. Channels as in :func:`raymarch_trilinear_shearwarp`.
+    ``packed`` and ``slab_window`` are accepted for signature parity: both
+    backwards read ``prepared``."""
     if backward not in ("shearwarp", "slab"):
         raise ValueError(f"unknown backward {backward!r}")
     perm, prepared, grid_shape = _resolve(
         density, affine_inverse, source, target, det_shape, perm, prepared, grid_shape,
-        mask, labels, chan_bounds, grid_bounds,
+        mask, labels, grid_bounds,
     )
-    cfg = (grid_shape, perm, float(eps), backward)
-    return _FastRender.apply(prepared, affine_inverse, source, target, cfg)
+    if prepared.ndim == 4 and backward == "slab":
+        raise ValueError("backward='slab' does not support channel rendering")
+    cfg = (grid_shape, perm, float(eps), backward, _bounds(chan_bounds))
+    return _public_channels(_FastRender.apply(prepared, affine_inverse, source, target, cfg))
 
 
 def raymarch_siddon_fast(*args, eps: float = 0.25, **kwargs) -> torch.Tensor:

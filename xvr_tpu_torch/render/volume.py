@@ -11,6 +11,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from ..geometry.se3 import RigidTransform, make_matrix
@@ -72,3 +73,49 @@ def transform_hu_to_density(volume: torch.Tensor, bone_attenuation_multiplier: f
     density = torch.where(bone, v * bone_attenuation_multiplier, density)
     density = density - density.min()
     return density / torch.clamp(density.max(), min=1e-12)
+
+
+def _centered(data: np.ndarray, spacing: float, device, orientation) -> Volume:
+    """A Volume of ``data`` with isotropic ``spacing``, centred at the origin."""
+    c = (data.shape[0] - 1) / 2.0
+    affine = np.eye(4, dtype=np.float32) * spacing
+    affine[3, 3] = 1.0
+    affine[:3, 3] = -c * spacing
+    return Volume(data=torch.as_tensor(data, device=device),
+                  affine=torch.as_tensor(affine, device=device), orientation=orientation)
+
+
+def load_example_ct(orientation: str | None = "AP", n: int = 96, spacing: float = 2.0,
+                    device="cuda") -> Volume:
+    """A synthetic example CT: air around a soft-tissue ellipsoid with a bone
+    shell and an asymmetric bone marker (no download)."""
+    c = (n - 1) / 2.0
+    idx = np.arange(n)
+    X, Y, Z = np.meshgrid(idx, idx, idx, indexing="ij")
+    rx, ry, rz = n / 2.6, n / 3.2, n / 2.4
+    r2 = ((X - c) / rx) ** 2 + ((Y - c) / ry) ** 2 + ((Z - c) / rz) ** 2
+    hu = np.where(r2 <= 1.0, 40.0, -1000.0).astype(np.float32)
+    shell = (r2 <= 0.55) & (r2 >= 0.35)
+    hu += np.where(shell, 900.0, 0.0)
+    hu[int(c) + n // 6 : int(c) + n // 4, int(c) - 2 : int(c) + 2, int(c) - 2 : int(c) + 2] = 1400.0
+    return _centered(hu, spacing, device, orientation)
+
+
+def make_test_volume(n: int = 32, spacing: float = 1.0, kind: str = "cube", device="cuda") -> Volume:
+    """Synthetic phantoms for tests and benchmarks: ``kind`` is "cube",
+    "sphere", "gradient" or "random" (seeded)."""
+    c = (n - 1) / 2.0
+    idx = np.arange(n)
+    X, Y, Z = np.meshgrid(idx, idx, idx, indexing="ij")
+    if kind == "cube":
+        half = n // 4
+        data = (np.abs(X - c) <= half) & (np.abs(Y - c) <= half) & (np.abs(Z - c) <= half)
+    elif kind == "sphere":
+        data = (X - c) ** 2 + (Y - c) ** 2 + (Z - c) ** 2 <= (n / 4) ** 2
+    elif kind == "gradient":
+        data = (X + 2 * Y + 3 * Z).astype(np.float32) / (6.0 * n)
+    elif kind == "random":
+        data = np.random.default_rng(0).uniform(size=(n, n, n))
+    else:
+        raise ValueError(kind)
+    return _centered(np.asarray(data, np.float32), spacing, device, orientation="AP")

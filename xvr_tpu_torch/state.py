@@ -135,10 +135,13 @@ def from_flax_params(tree: dict) -> dict[str, torch.Tensor]:
     return sd
 
 
-def to_flax_params(module) -> dict:
+def to_flax_params(module, tensors: dict | None = None) -> dict:
     """A :class:`~xvr_tpu_torch.models.PoseRegressor` -> its flax parameter
-    tree, ``{"params": ...}`` with float32 NumPy leaves."""
-    sd = {k: v.detach().to("cpu", torch.float32).numpy() for k, v in module.state_dict().items()}
+    tree, ``{"params": ...}`` with float32 NumPy leaves. ``tensors``, a dict
+    keyed by the module's state-dict names (an optimizer's moments), is laid
+    out in place of the module's own weights."""
+    tensors = module.state_dict() if tensors is None else tensors
+    sd = {k: v.detach().to("cpu", torch.float32).numpy() for k, v in tensors.items()}
     layernorm = module.backbone.norm_layer == "layernorm"
 
     def add(scope, k, conv, norm):

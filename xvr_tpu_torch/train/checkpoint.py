@@ -4,8 +4,9 @@ Counterpart of ``xvr_tpu.train.checkpoint``: each file is one msgpack map
 with the model weights in flax's tree (``model_state_dict``; see
 :func:`xvr_tpu_torch.state.to_flax_params`), the optimizer state, the
 iteration counter, the model number, a date stamp and the full resolved
-config, so the checkpoint alone rebuilds the model. Files written by either
-package load in the other. Read and written by the port's own codec
+config, so the checkpoint alone rebuilds the model and resumes its training
+(``xvr_tpu_torch.cli restart``). Files written by either package load in the
+other, the optimizer state included. Read and written by the port's own codec
 (:mod:`xvr_tpu_torch.io.msgpack`), without ``msgpack`` or ``flax``.
 """
 
@@ -36,9 +37,10 @@ def _jsonable(obj):
 def save_checkpoint(path, params, opt_state, itr: int, model_number: int, config: dict):
     """Write ``params`` (a flax-layout tree of NumPy arrays or tensors, as
     :func:`~xvr_tpu_torch.state.to_flax_params` gives) and ``opt_state`` (a
-    tree of the same kinds). The port has no trainer yet, so its callers pass
-    an empty optimizer state (``{}``); the JAX package's ``load_model``
-    reads only the weights and the config."""
+    tree of the same kinds: the trainer's optimizer state in optax's layout,
+    :meth:`~xvr_tpu_torch.train.optim.AGCAdamMultiSteps.state_dict`, or
+    ``{}`` for a checkpoint that only carries weights, which is all that
+    ``load_model`` reads)."""
     payload = {
         "model_state_dict": params,
         "optimizer_state_dict": opt_state,
