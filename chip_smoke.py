@@ -61,6 +61,18 @@ Phases (each prints one or more lines; any failure exits non-zero):
              launches per step against the route's, peak memory, loss and
              kept share per step; the restart's iteration and optimizer
              state against its checkpoint
+7. rest      on phase 4's scene: raymarch_trilinear_scan against
+             raymarch_trilinear at the fine stage (B=4, 239^2), max error,
+             times and peak memory; ray_sharded_fast_render on a 4-slot mesh
+             of the one card (rays 2) at B=1 and B=4, bit for bit against
+             the unsharded render, its pose gradient, K1-K4 launches per
+             call; RegistrarFixed.run_batch([xray] * 3) on a 2-slot mesh
+             (padded to 4; phase 4's registrar with fewer iterations) against
+             the mesh-free run; phase 6's finetune Trainer on a 2-slot mesh,
+             8 steps, step 1's loss against the mesh-free step's, ms and
+             launches per step; animate's render_trajectory over phase 5's
+             restart bundle (~20 frames, 3 held against the CPU); dcm2nii
+             through the CLI on a 16x12x8 series
 
 The line before the last is one JSON object with a record per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -1302,31 +1314,34 @@ def write_scene(workdir: Path, hu, aff, dev="cuda", det=1436):
     return gt_pose, gt_proj, img
 
 
+def bench_registrar(workdir: Path, gt_pose, n_itrs="500,500,500", dev="cuda", **kw):
+    """The bench's registrar (scripts/bench_register.py:398-413) for the
+    scene's X-ray, from the ~4 mm init about ``gt_pose``."""
+    import numpy as np
+    from xvr_tpu_torch.registrar import RegistrarFixed
+
+    rot0, xyz0 = gt_pose.convert("euler_angles", "ZXY")
+    rot_init = (rot0[0].cpu().numpy() + np.deg2rad([0.6, -0.5, 0.4])).tolist()
+    xyz_init = (xyz0[0].cpu().numpy() + np.array([2.0, -3.0, 1.5])).tolist()
+    cfg = dict(volume=workdir / "ct.nii.gz", mask=None, orientation="AP", rot=rot_init,
+               xyz=xyz_init, linearize=False, scales="24,12,6", n_itrs=n_itrs, crop=100,
+               reverse_x_axis=False, lr_rot=1e-2, lr_xyz=1.0, patience=10, max_n_plateaus=3,
+               verbose=1, coarse_seeds=16, device=dev)
+    return RegistrarFixed(**{**cfg, **kw})
+
+
 def register(workdir: Path, gt_pose, fids, renderer, kernels, no_shearwarp=False, dev="cuda",
              n_itrs="500,500,500"):
     """Register the scene's X-ray with the bench's configuration from the
     ~4 mm init, with the launch counts of this run alone. Checks the
     renderer, that ``kernels`` launched and the others did not, and mTRE
     < 1 mm. -> (launches, stats)."""
-    import numpy as np
-    from xvr_tpu_torch.registrar import RegistrarFixed
-    from xvr_tpu_torch.render import _cuda
-
     gt_np = gt_pose.matrix[0].cpu().numpy()
-    rot0, xyz0 = gt_pose.convert("euler_angles", "ZXY")
-    rot_init = (rot0[0].cpu().numpy() + np.deg2rad([0.6, -0.5, 0.4])).tolist()
-    xyz_init = (xyz0[0].cpu().numpy() + np.array([2.0, -3.0, 1.5])).tolist()
     saved = os.environ.pop("XVR_NO_SHEARWARP", None)
     if no_shearwarp:
         os.environ["XVR_NO_SHEARWARP"] = "1"
     try:
-        reg = RegistrarFixed(
-            volume=workdir / "ct.nii.gz", mask=None, orientation="AP",
-            rot=rot_init, xyz=xyz_init,
-            linearize=False, scales="24,12,6", n_itrs=n_itrs, crop=100,
-            reverse_x_axis=False, lr_rot=1e-2, lr_xyz=1.0,
-            patience=10, max_n_plateaus=3, verbose=1, coarse_seeds=16, device=dev,
-        )
+        reg = bench_registrar(workdir, gt_pose, n_itrs, dev)
         t0 = time.perf_counter()
         out, launches = counted(kernels, lambda: reg.run(workdir / "xray.dcm"))
         wall = time.perf_counter() - t0
@@ -2038,6 +2053,413 @@ def phase_training(workdir: Path, hu, aff, card, dev="cuda", kernels=SW_KERNELS,
     return stats
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the rest (the device mesh, the lean scan, animate, dcm2nii)
+# ---------------------------------------------------------------------------
+
+# phase 4's registrar cut only in iterations per stage (plateau exits end
+# stages sooner), for the sharded registration's two runs
+REST_REGISTER_ITRS = "60,40,30"
+REST_TRAIN_STEPS = 8  # the median leaves out the first TRAIN_WARMUP
+# the golden renderers on the card: the scan against the sample-tensor march
+# (float32 sums over the same samples in another order), a card frame of
+# animate against the CPU's (float32 on both, fused multiply-adds on the card)
+SCAN_RTOL = 1e-4
+FRAME_RTOL = 1e-4
+# the ray-sharded forward is bit-identical by construction; were it not, a
+# difference up to this share of max|render| is reported and passes
+RAY_SHARDED_BOUND = 1e-6
+# the sharded registration against the mesh-free one: each image's final
+# pose within this mTRE (mm) of the mesh-free run's same image
+SHARDED_POSE_BOUND_MM = 0.5
+TRAIN_LOSS_RTOL = 1e-4
+
+
+def rest_scan(proj, pose4, time_ms=cuda_time_ms):
+    """``raymarch_trilinear_scan`` against ``raymarch_trilinear`` at the fine
+    stage (B=4, 239^2, the projector's samples): max error, time and peak
+    memory above what was held before each."""
+    import torch
+    from xvr_tpu_torch.render import xla
+
+    fine = proj.rescale_detector(stage_cases(proj, pose4, pose4)[-1][2])
+    cuda = fine.device.type == "cuda"
+    with torch.no_grad():
+        src, tgt = fine.rays(pose4)
+        args = (fine.density, fine.affine_inverse, src, tgt)
+        calls = {"scan": lambda: xla.raymarch_trilinear_scan(*args, n_samples=fine.n_samples),
+                 "golden": lambda: xla.raymarch_trilinear(*args, n_samples=fine.n_samples)}
+        out, peak = {}, {}
+        for name, fn in calls.items():
+            if cuda:
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+            out[name] = fn()
+            if cuda:
+                torch.cuda.synchronize()
+                peak[name] = (torch.cuda.max_memory_allocated() - base) / 2**20
+        # the peak's call above warmed each up; the scan takes ~2 s a call
+        ms = {name: time_ms(fn, 1, warmup=0) for name, fn in calls.items()}
+    B, R = tgt.shape[:2]
+    shape = f"B={B} x {fine.detector.height}^2, {fine.n_samples} samples"
+    err = check("scan", out["scan"], out["golden"], f"vs raymarch_trilinear [{shape}]",
+                atol=SCAN_RTOL * float(out["golden"].abs().max()), rtol=SCAN_RTOL)
+    fmt = lambda v: "not measured" if v is None else f"{v:.1f} MiB"  # noqa: E731
+    log(f"rest: scan {ms['scan']:.3f} ms, peak {fmt(peak.get('scan'))}; raymarch_trilinear "
+        f"{ms['golden']:.3f} ms, peak {fmt(peak.get('golden'))} (its ray_chunk bounds each "
+        f"(B, R, S, 3) piece to 2^25 samples) [{shape}]")
+    return dict(shape=shape, max_abs_err=err, ms=ms["scan"], golden_ms=ms["golden"],
+                peak_mib=peak.get("scan"), golden_peak_mib=peak.get("golden"))
+
+
+def rest_ray_sharded(sw_proj, pose4, kernels=SW_KERNELS, time_ms=cuda_time_ms):
+    """``ray_sharded_fast_render`` on a mesh of 4 slots of one device (rays
+    2) at the fine stage, B=1 (the rows over all 4 slots, 239 padded to 240)
+    and B=4 (the batch over dp, the rows over rays): the forward against the
+    unsharded fast render, bit for bit (or within RAY_SHARDED_BOUND), the
+    pose gradient with JAX's tolerance (rtol 2e-2, atol 1e-4 max, cosine
+    > 1 - 1e-6), launches of each forward and backward, and the times."""
+    import torch
+    from xvr_tpu_torch.geometry import RigidTransform
+    from xvr_tpu_torch.parallel import make_mesh, ray_sharded_fast_render
+
+    fine = sw_proj.rescale_detector(stage_cases(sw_proj, pose4, pose4)[-1][2])
+    dev = fine.device
+    mesh = make_mesh(4, rays=2, devices=[dev] * 4)
+    prep = fine.prepare_for_shearwarp()
+    fwd = tuple(k for k in kernels if k in ("sw_accumulate", "sw_warp"))
+    out = {}
+    for B in (1, 4):
+        pose = RigidTransform(pose4.matrix[:B])
+
+        def sharded(p=pose):
+            return ray_sharded_fast_render(mesh, fine, p, prepared=prep)
+
+        def whole(p=pose):
+            return fine.render_rays(*fine.rays(p), prepared=prep)
+
+        with torch.no_grad():
+            got, launches = counted(fwd, sharded)
+            ref = whole()
+        same = bool(torch.equal(got, ref))
+        diff = float((got - ref).abs().max())
+        scale = float(ref.abs().max())
+
+        def grad(render):
+            m = pose.matrix.clone().requires_grad_(True)
+            (g,) = torch.autograd.grad((render(RigidTransform(m)) ** 2).sum(), m)
+            return g.double().ravel()
+
+        g_sh, bwd_launches = counted(kernels, lambda: grad(sharded))
+        g_ref = grad(whole)
+        # the unsharded gradient again: the warp transpose's scatter_add_ adds
+        # in the order its atomics land, so a repeat need not match its bits
+        repeats = bool(torch.equal(g_ref, grad(whole)))
+        g_err = float((g_sh - g_ref).abs().max())
+        g_tol = 1e-4 * float(g_ref.abs().max()) + 2e-2 * g_ref.abs()
+        g_ok = bool(((g_sh - g_ref).abs() <= g_tol).all())
+        cos = float(g_sh @ g_ref / (g_sh.norm() * g_ref.norm()))
+        with torch.no_grad():
+            ms, whole_ms = time_ms(sharded, 10), time_ms(whole, 10)
+        blocks = mesh.size  # B=4: 2 batch blocks x 2 row blocks; B=1: 4 row blocks
+        log(f"rest: ray-sharded render B={B} [{fine.detector.height}^2, mesh {mesh.shape} of one "
+            f"device, {blocks} blocks]: bit-identical to the unsharded render {same} (max |diff| "
+            f"{diff:.3e}, bound {RAY_SHARDED_BOUND:g} x max {scale:.3e}); pose gradient max |diff| "
+            f"{g_err:.3e} within rtol 2e-2 / atol 1e-4 max {g_ok}, cosine {cos:.12f} (> 1 - 1e-6), "
+            f"the unsharded gradient repeats bit for bit {repeats}; "
+            f"launches forward {json.dumps({k: v for k, v in launches.items() if v})}, with the "
+            f"backward {json.dumps({k: v for k, v in bwd_launches.items() if v})}; "
+            f"{ms:.4f} ms sharded, {whole_ms:.4f} ms unsharded")
+        if not (diff <= RAY_SHARDED_BOUND * scale and g_ok and cos > 1.0 - 1e-6):
+            raise AssertionError(f"ray-sharded render B={B} disagrees with the unsharded render")
+        if kernels and launches["sw_accumulate"] != blocks:
+            raise AssertionError(f"ray-sharded render B={B}: {launches['sw_accumulate']} K1 "
+                                 f"launches for {blocks} row blocks")
+        out[f"B{B}"] = dict(bit_identical=same, max_abs_diff=diff, grad_max_abs_diff=g_err,
+                            grad_cosine=cos, unsharded_grad_repeats=repeats, launches=launches, launches_with_backward=bwd_launches,
+                            ms=ms, unsharded_ms=whole_ms, blocks=blocks)
+    return out
+
+
+def batch_independence(reg, gt_pose, n=12, k=8, seed=11):
+    """Which step of one registration iteration depends on the batch: ``n``
+    poses about ``gt_pose`` at the registrar's fine stage, the first ``k``
+    of them alone against the same ``k`` inside the batch of ``n``, bit for
+    bit: the fast render, the X-ray transforms, the similarity (the
+    registrar's defaults), the similarity's gradient by the transformed
+    images, the render's gradient by its rays (source and targets) and by
+    the pose for a fixed cotangent, and the whole pose gradient. -> name ->
+    equal."""
+    import numpy as np
+    import torch
+    from xvr_tpu_torch.geometry import convert
+    from xvr_tpu_torch.metrics.ncc import make_imagesim
+    from xvr_tpu_torch.registrar.base import _parse_scales
+    from xvr_tpu_torch.utils.transforms import make_xray_transforms
+
+    H = reg.projector.detector.height
+    proj = reg.projector.rescale_detector(_parse_scales(reg.scales, reg.crop, H)[-1])
+    det = proj.detector
+    transform = make_xray_transforms(det.height, det.width)
+    imagesim = make_imagesim(9, 11, 0.0, 0.5)
+    dev = proj.device
+    rng = np.random.default_rng(seed)
+    rot0, xyz0 = gt_pose.convert("euler_angles", "ZXY")
+    rot = rot0.reshape(1, 3) + torch.tensor(rng.uniform(-0.01, 0.01, (n, 3)), dtype=torch.float32,
+                                            device=dev)
+    xyz = xyz0.reshape(1, 3) + torch.tensor(rng.uniform(-2.0, 2.0, (n, 3)), dtype=torch.float32,
+                                            device=dev)
+    prepared = proj.prepare_for_shearwarp()
+    with torch.no_grad():
+        gt = transform(proj(gt_pose, prepared=prepared)).expand(n, -1, -1, -1)
+    cot = torch.randn((n, 1, det.height, det.width), generator=torch.Generator(dev).manual_seed(seed),
+                      device=dev)
+
+    def step(m):
+        r, x = rot[:m].clone().requires_grad_(True), xyz[:m].clone().requires_grad_(True)
+        img = proj(convert(r, x, "euler_angles", "ZXY"), prepared=prepared)
+        tr = transform(img)
+        sims = imagesim(gt[:m], tr)
+        g_tr, g_r, g_x = torch.autograd.grad(sims.sum(), (tr, r, x), retain_graph=True)
+        render_g = torch.autograd.grad((img * cot[:m]).sum(), (r, x))
+        src, tgt = (t.detach().requires_grad_(True)
+                    for t in proj.rays(convert(rot[:m], xyz[:m], "euler_angles", "ZXY")))
+        raw = proj.render_rays(src, tgt, prepared=prepared)
+        ray_g = torch.autograd.grad((raw * cot[:m].reshape(m, -1)).sum(), (src, tgt))
+        return dict(render=img, transforms=tr, similarity=sims, similarity_grad=g_tr,
+                    render_ray_grad=torch.cat([g.reshape(m, -1) for g in ray_g], 1),
+                    render_grad=torch.cat(render_g, 1), gradient=torch.cat([g_r, g_x], 1))
+
+    whole, part = step(n), step(k)
+    return {name: bool(torch.equal(whole[name][:k].detach(), part[name].detach())) for name in whole}
+
+
+def rest_sharded_registration(workdir: Path, gt_pose, fids, dev="cuda", kernels=SW_KERNELS,
+                              n_itrs=REST_REGISTER_ITRS):
+    """``run_batch([xray] * 3)`` with phase 4's registrar (iterations cut to
+    ``n_itrs``) on a 2-slot mesh of one device, padded to 4 images, against
+    the mesh-free ``run_batch`` of the same images: each image's final pose,
+    bit for bit or within SHARDED_POSE_BOUND_MM; the sharded run's launches,
+    ms/itr and mTRE (reported: the iterations are cut)."""
+    import numpy as np
+    from xvr_tpu_torch.parallel import make_mesh
+
+    xray = workdir / "xray.dcm"
+    gt_np = gt_pose.matrix[0].cpu().numpy()
+    mesh = make_mesh(2, devices=[dev] * 2)
+    runs = {}
+    for name, m in (("mesh", mesh), ("mesh-free", None)):
+        reg = bench_registrar(workdir, gt_pose, n_itrs, dev, mesh=m, verbose=0)
+        t0 = time.perf_counter()
+        res, launches = counted(kernels, lambda r=reg: r.run_batch([xray] * 3))
+        runs[name] = dict(reg=reg, res=res, launches=launches, wall=time.perf_counter() - t0)
+    poses = {k: [r[4].matrix.cpu().numpy().reshape(4, 4) for r in v["res"]] for k, v in runs.items()}
+    mtre = {k: [fiducial_mtre(p, gt_np, fids) for p in v] for k, v in poses.items()}
+    apart = [fiducial_mtre(a, b, fids) for a, b in zip(poses["mesh"], poses["mesh-free"])]
+    same = [bool(np.array_equal(a, b)) for a, b in zip(poses["mesh"], poses["mesh-free"])]
+    diff = [float(np.abs(a - b).max()) for a, b in zip(poses["mesh"], poses["mesh-free"])]
+    reg_m = runs["mesh"]["reg"]
+    log(f"rest: sharded registration run_batch([xray] * 3) on mesh {mesh.shape} of one device "
+        f"(padded to {reg_m.stage_log[0]['K'] // 16} images; n_itrs {n_itrs}): wall "
+        f"{runs['mesh']['wall']:.2f} s against {runs['mesh-free']['wall']:.2f} s mesh-free; "
+        f"launches {json.dumps(runs['mesh']['launches'])} (mesh-free "
+        f"{json.dumps(runs['mesh-free']['launches'])})")
+    for rec, ref in zip(reg_m.stage_log, runs["mesh-free"]["reg"].stage_log):
+        log(f"  stage {rec['stage']} K={rec['K']} {rec['height']}x{rec['width']}: "
+            f"{rec['n_done']} itrs, {rec['ms_per_itr']:.2f} ms/itr (mesh-free K={ref['K']}: "
+            f"{ref['n_done']} itrs, {ref['ms_per_itr']:.2f} ms/itr)")
+    log(f"rest: sharded registration final poses = the mesh-free run's bit for bit {same}; max "
+        f"|diff| {[f'{d:.3e}' for d in diff]}, apart {[round(a, 4) for a in apart]} mm mTRE "
+        f"(<= {SHARDED_POSE_BOUND_MM}); mTRE sharded {[round(v, 4) for v in mtre['mesh']]}, "
+        f"mesh-free {[round(v, 4) for v in mtre['mesh-free']]} mm")
+    same_parts = batch_independence(reg_m, gt_pose)
+    log(f"rest: one iteration's steps for 8 poses alone = the same 8 inside a batch of 12, bit "
+        f"for bit: {json.dumps(same_parts)}")
+    if len(runs["mesh"]["res"]) != 3 or reg_m.stage_log[0]["K"] != 4 * 16:
+        raise AssertionError("the sharded run_batch did not pad 3 images to 4 and return 3")
+    if max(apart) > SHARDED_POSE_BOUND_MM:
+        raise AssertionError("the sharded registration strays from the mesh-free one")
+    return dict(n_itrs=n_itrs, wall_s=runs["mesh"]["wall"], mesh_free_wall_s=runs["mesh-free"]["wall"],
+                launches=runs["mesh"]["launches"], bit_identical=same, max_abs_diff=diff,
+                batch_independent=same_parts,
+                apart_mm=apart, mtre_mm=mtre["mesh"], mesh_free_mtre_mm=mtre["mesh-free"],
+                stages=[dict(stage=r["stage"], K=r["K"], det=r["height"], n_done=r["n_done"],
+                             ms_per_itr=r["ms_per_itr"], mesh_free_n_done=f["n_done"],
+                             mesh_free_ms_per_itr=f["ms_per_itr"])
+                        for r, f in zip(reg_m.stage_log, runs["mesh-free"]["reg"].stage_log)])
+
+
+def rest_sharded_training(workdir: Path, card, dev="cuda", kernels=SW_KERNELS,
+                          steps=REST_TRAIN_STEPS):
+    """Phase 6's masked finetune configuration (the config its first
+    checkpoint holds, as ``restart`` reads it) through ``Trainer`` on a
+    2-slot mesh of one device, ``steps`` steps: step 1's loss against the
+    mesh-free trainer's at equal draws (both seeded alike; cuDNN's TF32 off
+    for that step), ms per step (the median without the first TRAIN_WARMUP)
+    and launches per step against the route's (once per slot)."""
+    import numpy as np
+    import torch
+    from xvr_tpu_torch.parallel import make_mesh
+    from xvr_tpu_torch.render import _cuda
+    from xvr_tpu_torch.train import Trainer, load_checkpoint
+
+    cfg = dict(load_checkpoint(workdir / "train_masked" / "0000.ckpt")["config"],
+               outpath=workdir / "mesh_train", n_total_itrs=steps)
+    cuda = dev == "cuda"
+    mesh = make_mesh(2, devices=[dev] * 2)
+    ref = Trainer(**{**cfg, "outpath": workdir / "mesh_train_ref"}, device=dev)
+    tr = Trainer(**cfg, mesh=mesh, device=dev)
+    expect = {k: v * mesh.size for k, v in route_launches(tr.route()).items()}
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        loss_ref = float(ref.step(0)["loss"])
+        ms, per_step, losses = [], [], []
+        for itr in range(steps):
+            if itr == 1:
+                torch.backends.cudnn.allow_tf32 = tf32
+            sync()
+            before = dict(_cuda.LAUNCHES)
+            t0 = time.perf_counter()
+            losses.append(float(tr.step(itr)["loss"]))
+            sync()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            per_step.append({k: v - before[k] for k, v in _cuda.LAUNCHES.items() if v - before[k]})
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    rel = abs(losses[0] - loss_ref) / abs(loss_ref)
+    med = float(np.median(ms[TRAIN_WARMUP:]))
+    log(f"rest: sharded training (finetune, masked, batch {tr.batch_size} at {tr.height}^2, "
+        f"{tr.config['model_name']}) on mesh {mesh.shape} of one device: step 1 loss "
+        f"{losses[0]:.6f} against the mesh-free step's {loss_ref:.6f} (rel {rel:.2e} <= "
+        f"{TRAIN_LOSS_RTOL:g}); ms per step {[round(t, 2) for t in ms]}, median of steps "
+        f"{TRAIN_WARMUP + 1}-{steps} "
+        f"{med:.2f} [{card}]; launches per step {json.dumps(per_step[0])} (the route's once per "
+        f"slot: {json.dumps(expect)}); losses {[round(v, 5) for v in losses]}")
+    if not (rel <= TRAIN_LOSS_RTOL and all(np.isfinite(losses))):
+        raise AssertionError("the sharded training step's loss is not the mesh-free step's")
+    if kernels and any(p != expect for p in per_step):
+        raise AssertionError(f"sharded training launches {per_step}, not the route's x2 {expect}")
+    stats = dict(loss=losses, mesh_free_loss=loss_ref, rel_loss_diff=rel, ms_per_step=ms,
+                 ms_per_step_median=med, launches_per_step=per_step[0], launches_expected=expect)
+    del ref, tr
+    if cuda:
+        torch.cuda.empty_cache()
+    return stats
+
+
+def rest_animate(workdir: Path, dev="cuda", frames=20, checked=3):
+    """animate's re-rendering half on ``dev`` (``render_trajectory``) over
+    phase 5's ``register restart`` bundle at a ``--skip`` that gives about
+    ``frames`` frames; ``checked`` of them (first, middle, last) against the
+    same frames re-rendered on the CPU (FRAME_RTOL of each frame's max)."""
+    import numpy as np
+    import torch
+    from xvr_tpu_torch.visualization import load_bundle, render_trajectory
+
+    bundle = workdir / "out_restart" / "xray"
+    arrays, meta = load_bundle(bundle)
+    n = len(arrays["trajectory_params"])
+    skip = max(1, round(n / frames))
+    t0 = time.perf_counter()
+    got = render_trajectory(bundle, skip, dev)
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if len(meta["optimization"]["scales"]) != 1:
+        raise AssertionError("the restart bundle should have one pyramid stage")
+    # the checked frames' poses as a bundle of their own (one stage: no
+    # pyramid advance to replay), re-rendered on the CPU
+    pick = sorted({0, len(got) // 2, len(got) - 1})[:checked]
+    rows = [got[i][0] for i in pick]
+    sub = workdir / "animate_cpu"
+    sub.mkdir(exist_ok=True)
+    np.savez(sub / "parameters.npz", **{**arrays, "trajectory_params": arrays["trajectory_params"][rows],
+                                         "trajectory_lrs": arrays["trajectory_lrs"][rows]})
+    (sub / "parameters.json").write_text(json.dumps(meta))
+    cpu = render_trajectory(sub, 1, "cpu")
+    errs = []
+    for i, (_, img, xray) in zip(pick, cpu):
+        for name, a, b in (("DRR", got[i][1], img), ("X-ray", got[i][2], xray)):
+            err = float(np.abs(a - b).max())
+            tol = FRAME_RTOL * float(np.abs(b).max())
+            errs.append(err)
+            if not (a.shape == b.shape and np.isfinite(a).all() and err <= tol):
+                raise AssertionError(f"animate frame {got[i][0]} {name}: card vs CPU {err} > {tol}")
+    fps = len(got) / wall
+    log(f"rest: animate render_trajectory on {dev} over the register restart bundle ({n} rows, "
+        f"--skip {skip}): {len(got)} frames of {got[0][1].shape[0]}^2 in {wall:.2f} s, {fps:.2f} "
+        f"frames/s (the CT's load included); frames {[got[i][0] for i in pick]} against the CPU: "
+        f"max |diff| {max(errs):.3e} (<= {FRAME_RTOL:g} x each frame's max)")
+    return dict(rows=n, skip=skip, frames=len(got), wall_s=wall, frames_per_s=fps,
+                checked=[got[i][0] for i in pick], max_abs_err=max(errs))
+
+
+def rest_dcm2nii(workdir: Path):
+    """``python -m xvr_tpu_torch.cli dcm2nii`` in process on a 16x12x8 series
+    written with the port's dcmwrite in shuffled order: the volume and the
+    LPS -> RAS affine are the values written."""
+    import numpy as np
+    from xvr_tpu_torch.cli import main
+    from xvr_tpu_torch.io import dcmwrite, load_nifti
+
+    rows, cols, n, sp_r, sp_c, dz = 16, 12, 8, 1.5, 2.0, 3.0
+    rng = np.random.default_rng(0)
+    hu = rng.integers(-1000, 1500, size=(rows, cols, n)).astype(np.float32)
+    origin = np.array([5.0, -7.0, 11.0])
+    series = workdir / "series"
+    series.mkdir(exist_ok=True)
+    for k in rng.permutation(n):
+        extra = [(0x0020, 0x0032, b"DS", [f"{v:g}" for v in origin + [0.0, 0.0, dz * k]]),
+                 (0x0020, 0x0037, b"DS", ["1", "0", "0", "0", "1", "0"]),
+                 (0x0028, 0x1052, b"DS", "-1024"), (0x0028, 0x1053, b"DS", "1"),
+                 (0x0018, 0x0050, b"DS", f"{dz:g}")]
+        dcmwrite(series / f"slice_{n - k:03d}.dcm", (hu[:, :, k] + 1024.0).astype(np.uint16),
+                 sdd=0.0, row_spacing=sp_r, col_spacing=sp_c, extra=extra)
+    out = workdir / "series.nii.gz"
+    t0 = time.perf_counter()
+    main(["dcm2nii", str(series), str(out)])
+    wall = time.perf_counter() - t0
+    data, affine = load_nifti(out)
+    # axis 0 = rows (along the column direction), 1 = columns, 2 = the
+    # normal; LPS -> RAS flips the first two world axes
+    expect = np.eye(4)
+    expect[:3, 0] = [0.0, -sp_r, 0.0]
+    expect[:3, 1] = [-sp_c, 0.0, 0.0]
+    expect[:3, 2] = [0.0, 0.0, dz]
+    expect[:3, 3] = [-origin[0], -origin[1], origin[2]]
+    ok = data.shape == hu.shape and np.array_equal(data, hu) and np.allclose(affine, expect, atol=1e-6)
+    log(f"rest: dcm2nii of a {rows}x{cols}x{n} series in {wall:.3f} s: volume and affine as "
+        f"written {ok}")
+    if not ok:
+        raise AssertionError(f"dcm2nii: volume {data.shape} or affine {affine.tolist()} not as written")
+    return dict(shape=list(data.shape), wall_s=wall)
+
+
+def phase_rest(workdir: Path, proj, sw_proj, pose4, gt_pose, fids, card, dev="cuda",
+               kernels=SW_KERNELS, register_itrs=REST_REGISTER_ITRS, time_ms=cuda_time_ms):
+    """Phase 7 on phase 4's scene, after phases 5 and 6 (their bundle and
+    training files). ``kernels=()`` skips the launch checks (no card).
+    -> stats."""
+    t0 = time.perf_counter()
+    stats = dict(scan=rest_scan(proj, pose4, time_ms),
+                 ray_sharded=rest_ray_sharded(sw_proj, pose4, kernels, time_ms),
+                 sharded_registration=rest_sharded_registration(workdir, gt_pose, fids, dev,
+                                                                kernels, register_itrs),
+                 sharded_training=rest_sharded_training(workdir, card, dev, kernels),
+                 animate=rest_animate(workdir, dev),
+                 dcm2nii=rest_dcm2nii(workdir))
+    stats["seconds"] = time.perf_counter() - t0
+    log(f"rest: all checks passed ({stats['seconds']:.1f} s)")
+    return stats
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [leaf for k in sorted(tree) for leaf in _leaves(tree[k])]
@@ -2120,6 +2542,8 @@ def main() -> int:
         entry_launches, entry_stats = phase_entry_points(workdir, gt_pose, fids, smi)
         # 6. training: train masked and unmasked, and restart, through the CLI
         train_stats = phase_training(workdir, hu, aff, smi)
+        # 7. the rest: the device mesh, the lean scan, animate and dcm2nii
+        rest_stats = phase_rest(workdir, proj, sw_proj, pose4, gt_pose, fids, smi)
     render_launches, render_stats = label_and_siddon_renders(vol, gt_pose, gt_proj, gt_img, pose4)
     launches = {**{k: sw_launches[k] for k in sw_launches if k.startswith("sw_")},
                 "slab_forward": slab_launches["slab_forward"],
@@ -2152,6 +2576,11 @@ def main() -> int:
             rec["trainer"] = {k: trainer[name].get(k) for k in (
                 "shape", "ms", "profiler_ms", "plain_ms", "bound_ms", "bound_by",
                 "bound_ms_full_plane_ops", "max_abs_err")}
+        if name in SW_KERNELS:
+            # phase 7's mesh paths, each counted over its own run
+            rec["launches_sharded_registration"] = rest_stats["sharded_registration"]["launches"][name]
+            rec["launches_sharded_train_step"] = rest_stats["sharded_training"]["launches_per_step"].get(
+                name, 0)
         if name in trainer_sw:
             rec["trainer"] = trainer_sw[name]
             rec["launches_train_step"] = {k: train_stats[k]["launches_per_step"].get(name, 0)
@@ -2162,6 +2591,7 @@ def main() -> int:
           flush=True)
     print("entry " + json.dumps({**entry_stats, "model_launches": entry_launches}), flush=True)
     print("train " + json.dumps(train_stats), flush=True)
+    print("rest " + json.dumps(rest_stats), flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

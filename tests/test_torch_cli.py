@@ -7,7 +7,8 @@ range and help category is the same, and the only extra option is
 ``--device``. The register tests of tests/test_cli.py are mirrored with
 ``--device cpu``, and ``register model`` from a JAX-written checkpoint starts
 from the JAX package's pose (to 1e-4 of the pose matrix's largest entry,
-tests/test_torch_models.py).
+tests/test_torch_models.py). ``animate`` and ``dcm2nii`` take the JAX
+commands' options and run on a registration bundle and a DICOM series.
 """
 
 import argparse
@@ -215,12 +216,13 @@ def test_register_model_gives_jax_init(workdir, tmp_path):
 
 
 def test_refusals(workdir, tmp_path):
-    """``--n_devices`` above 1 raises the registrar's NotImplementedError (no
-    device mesh); ``--device cuda`` without a card raises."""
+    """``--n_devices`` above 1 with ``--device cpu`` raises (a device mesh
+    needs that many CUDA devices; the CPU is one); ``--device cuda`` without
+    a card raises."""
     args = ["register", "fixed", str(workdir / "xray.dcm"), "-v", str(workdir / "ct.nii.gz"),
             "-o", str(tmp_path), "--rot", "3.18", "0", "0", "--xyz", "0", "225", "0",
             "--init_only", "--verbose", "0"]
-    with pytest.raises(NotImplementedError, match="device mesh"):
+    with pytest.raises(ValueError, match="--n_devices 2: a device mesh needs 2 CUDA devices"):
         main(args + ["--device", "cpu", "--n_devices", "2"])
     with pytest.raises(SystemExit):
         main(args + ["--device", "tpu"])
@@ -416,6 +418,56 @@ def test_train_then_restart_on_cpu(train_data, tmp_path, monkeypatch, masked, tw
 
 def test_train_refuses_a_mesh(train_data, tmp_path, monkeypatch, two_torch_threads):
     monkeypatch.setenv("XVR_LOG_DIR", str(tmp_path / "runs"))
-    with pytest.raises(NotImplementedError, match="device mesh"):
+    with pytest.raises(ValueError, match="--n_devices 2: a device mesh needs 2 CUDA devices"):
         main(["train", "-v", str(train_data / "volume.nii.gz"), "-o", str(tmp_path / "o"),
               *TRAIN_ARGS, "--n_devices", "2"])
+
+
+# ---------------------------------------------------------------------------
+# animate and dcm2nii
+# ---------------------------------------------------------------------------
+
+
+def test_animate_dcm2nii_surface_matches_click():
+    """``animate`` has the JAX command's options (and ``--device``), and
+    ``dcm2nii`` its two arguments."""
+    from xvr_tpu.cli.commands.animate import animate as janimate
+    from xvr_tpu.cli.commands.dcm2nii import dcm2nii as jdcm2nii
+
+    mine = _command_surface(_subparsers(build_parser())["animate"])
+    assert mine.pop("device") == dict(opts=["--device"], default="cuda", nargs=1, required=False,
+                                      flag=False, choices=["cuda", "cpu"], range=None,
+                                      category="Miscellaneous")
+    assert mine == _click_surface(janimate)
+    p = _subparsers(build_parser())["dcm2nii"]
+    args = [(a.dest, a.nargs, a.required) for a in p._actions if not a.option_strings]
+    assert args == [(n, None, spec["required"]) for n, spec in _click_surface(jdcm2nii).items()]
+
+
+def test_animate_and_dcm2nii_commands(workdir, tmp_path, capsys):
+    """``dcm2nii`` converts a series and says so; ``animate`` replays a
+    ``register`` bundle, one frame per ``--skip`` poses, as a GIF where no
+    video backend is installed."""
+    import imageio.v3 as iio
+
+    from test_torch_dcm2nii import _write_series
+    from xvr_tpu_torch.io import load_nifti
+
+    series = tmp_path / "series"
+    series.mkdir()
+    hu, _ = _write_series(series)
+    out = tmp_path / "out" / "ct.nii.gz"
+    assert main(["dcm2nii", str(series), str(out)]) == 0
+    assert f"Converting {series} to {out}" in capsys.readouterr().out
+    np.testing.assert_allclose(load_nifti(out)[0], hu, atol=1e-3)
+
+    res = tmp_path / "results"
+    assert main(["register", "fixed", str(workdir / "xray.dcm"), "-v", str(workdir / "ct.nii.gz"),
+                 "-o", str(res), "--rot", "3.18", "0.0", "0.0", "--xyz", "0.0", "225.0", "0.0",
+                 "--scales", "2", "--n_itrs", "5", "--max_restarts", "0", "--restart_seeds", "1",
+                 "--verbose", "0", "--device", "cpu"]) == 0
+    n = len(np.load(res / "xray" / "parameters.npz")["trajectory_params"])
+    gif = tmp_path / "anim.gif"
+    assert main(["animate", "-i", str(res / "xray"), "-o", str(gif), "--skip", "2", "--dpi", "24",
+                 "--device", "cpu"]) == 0
+    assert iio.imread(gif, index=None).shape[0] == len(range(0, n, 2))

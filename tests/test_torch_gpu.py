@@ -613,3 +613,75 @@ def test_trainer_step_on_the_card_matches_cpu(cuda, tmp_path, monkeypatch, maske
     a = torch.cat([gc[k].cpu().ravel() for k in gr]).double()
     b = torch.cat([gr[k].ravel() for k in gr]).double()
     assert float(a @ b / (a.norm() * b.norm())) >= 0.99
+
+
+@pytest.mark.parametrize("B,height", [(4, 32), (1, 34)])
+def test_ray_sharded_fast_render_is_bit_identical(cuda, B, height):
+    """The ray-sharded shear-warp render on a 4-slot mesh of the one card
+    (dp 2, rays 2): B=4 splits the batch over dp and the rows over rays, B=1
+    the rows over all 4 slots (34 rows pad to 36). Under the full detector's
+    grid bounds K1 sees identical inputs and K2 works per pixel, so the
+    forward equals the unsharded render bit for bit, with one K1 and one K2
+    launch per block; the pose gradient (K3, K4 per block) is held to the
+    JAX test's tolerance."""
+    from xvr_tpu_torch.geometry import RigidTransform, convert
+    from xvr_tpu_torch.parallel import make_mesh, ray_sharded_fast_render
+    from xvr_tpu_torch.render import Projector, _cuda, make_test_volume
+
+    vol = make_test_volume(48, spacing=2.0, kind="sphere", device=cuda)
+    proj = Projector.from_volume(vol, sdd=400.0, height=height, delx=4.0)
+    rot = torch.tensor([[180.0, 5.0, -3.0], [170.0, -5.0, 3.0], [185.0, 2.0, 1.0],
+                        [175.0, -2.0, -1.0]], device=cuda)[:B]
+    xyz = torch.tensor([[0.0, 200.0, 0.0], [5.0, 220.0, -5.0], [-3.0, 210.0, 2.0],
+                        [2.0, 205.0, -2.0]], device=cuda)[:B]
+    pose = convert(rot, xyz, "euler_angles", "ZXY", degrees=True)
+    fast = proj.with_shearwarp(pose)
+    assert fast.renderer == "trilinear_fast"
+    prep = fast.prepare_for_shearwarp()
+    mesh = make_mesh(4, rays=2, devices=[cuda] * 4)
+    ref = fast.render_rays(*fast.rays(pose), prepared=prep)
+    _cuda.reset_launches()
+    out = ray_sharded_fast_render(mesh, fast, pose, prepared=prep)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+    assert {k: v for k, v in _cuda.LAUNCHES.items() if v} == {"sw_accumulate": 4, "sw_warp": 4}
+
+    def grad(render):
+        m = pose.matrix.clone().requires_grad_(True)
+        (g,) = torch.autograd.grad((render(RigidTransform(m)) ** 2).sum(), m)
+        return g.double().ravel()
+
+    a = grad(lambda p: ray_sharded_fast_render(mesh, fast, p, prepared=prep))
+    b = grad(lambda p: fast.render_rays(*fast.rays(p), prepared=prep))
+    torch.testing.assert_close(a, b, rtol=2e-2, atol=1e-4 * float(b.abs().max()))
+    assert float(a @ b / (a.norm() * b.norm())) > 1.0 - 1e-6
+
+
+def test_mesh_training_step_on_the_card_matches_unsharded(cuda, tmp_path, monkeypatch):
+    """A masked shear-warp training step on a 2-slot mesh of the one card
+    against the mesh-free step at equal weights and draws (cuDNN's TF32 off):
+    the loss to rtol 1e-4; K1-K4 launch once per slot for each of their
+    renders."""
+    from xvr_tpu_torch.parallel import make_mesh
+    from xvr_tpu_torch.render import _cuda
+
+    monkeypatch.setenv("XVR_FORCE_SHEARWARP", "1")
+    ct, mask = _train_scene(tmp_path)
+    ref = _small_trainer(ct, mask, tmp_path / "ref", cuda)
+    tr = _small_trainer(ct, mask, tmp_path / "mesh", cuda, mesh=make_mesh(2, devices=[cuda] * 2))
+    tr.model.load_state_dict(ref.model.state_dict())
+    draws = ref.draw()
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False  # the CNN's chunks then differ only in sum order
+    try:
+        lr, _, _ = ref.loss_and_grads(ref.projectors[0], ref.centers[0], draws)
+        _cuda.reset_launches()
+        lm, _, _ = tr.loss_and_grads(tr.projectors[0], tr.centers[0], draws)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    assert abs(float(lm) - float(lr)) <= 1e-4 * abs(float(lr))
+    C = 1 + len(tr.labels)
+    assert {k: v for k, v in _cuda.LAUNCHES.items() if v} == {
+        "sw_accumulate": 2 * 2 * C, "sw_warp": 2 * 2, "sw_warp_grads": 2,
+        "sw_accumulate_adjoint": 2 * C}

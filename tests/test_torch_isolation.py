@@ -93,7 +93,8 @@ def test_import_leaves_jax_unloaded():
         "import sys, xvr_tpu_torch, xvr_tpu_torch.registrar, xvr_tpu_torch.render, "
         "xvr_tpu_torch.render.pallas, xvr_tpu_torch.models, xvr_tpu_torch.train, "
         "xvr_tpu_torch.cli, xvr_tpu_torch.config, xvr_tpu_torch.io.msgpack, "
-        "xvr_tpu_torch.io, xvr_tpu_torch.metrics, xvr_tpu_torch.utils, xvr_tpu_torch.state; "
+        "xvr_tpu_torch.io, xvr_tpu_torch.metrics, xvr_tpu_torch.utils, xvr_tpu_torch.state, "
+        "xvr_tpu_torch.parallel, xvr_tpu_torch.visualization, xvr_tpu_torch.io.dcm2nii; "
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)"
     )

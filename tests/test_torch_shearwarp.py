@@ -277,8 +277,15 @@ def test_unported_options_raise(scene):
     with pytest.raises(ValueError, match="channel"):
         tsw.raymarch_trilinear_fast(*args, perm=scene["perm"], backward="slab",
                                     mask=torch.ones(N, N, N, dtype=torch.int32), labels=(1,))
-    with pytest.raises(NotImplementedError, match="grid_bounds"):
-        tsw.raymarch_trilinear_fast(*args, perm=scene["perm"], grid_bounds=(0, 1, 0, 1, 1))
+    # grid_bounds is ported (tests/test_torch_parallel.py): the bounds of the
+    # rays' own fit give the render without them, bit for bit
+    side = int(round(ttgt.shape[1] ** 0.5))
+    bounds = tsw.shearwarp_grid_bounds(args[1], tsrc, ttgt, perm=scene["perm"],
+                                       grid_shape=tsw.default_grid_shape((side, side)))
+    assert all(b.shape == (ttgt.shape[0],) and not b.requires_grad for b in bounds)
+    torch.testing.assert_close(
+        tsw.raymarch_trilinear_fast(*args, perm=scene["perm"], grid_bounds=bounds),
+        tsw.raymarch_trilinear_fast(*args, perm=scene["perm"]), rtol=0, atol=0)
 
 
 # ---------------------------------------------------------------------------

@@ -7,7 +7,7 @@ one-label core, 32^2 DRRs, ResNet-18, batch 3):
   slab-fallback cases both packages pick the same renderer, alpha strata,
   batch shares, permutations and label slab bounds;
 * the train loop: logs, checkpoints with the optimizer state, the figure
-  request that waits for ``visualization/``;
+  of target and predicted DRRs at step 0;
 * ``pad_volumes``.
 
 One step against the JAX package's: tests/test_torch_trainer_step.py.
@@ -127,7 +127,8 @@ def test_route_matches_jax(tiny_dataset, tmp_path, monkeypatch, case):
 def test_pad_volumes_and_train_loop(tiny_dataset, tmp_path, monkeypatch):
     """pad_volumes pads with air and label 0 (tests/test_train.py's case);
     the train loop logs every step, writes checkpoints with the optimizer
-    state, and a figure request fails without ending the run."""
+    state, and logs the 2 x 4 grid of target and predicted DRRs at step 0
+    (tests/test_torch_visualization.py holds its images against JAX's)."""
     a = Volume(data=torch.zeros((4, 6, 8)), affine=torch.eye(4), mask=None)
     b = Volume(data=torch.zeros((6, 4, 8)), affine=torch.eye(4), mask=torch.zeros((6, 4, 8), dtype=torch.int32))
     out = pad_volumes([a, b])
@@ -147,7 +148,9 @@ def test_pad_volumes_and_train_loop(tiny_dataset, tmp_path, monkeypatch):
     run = Run()
     last = tt.train(run=run, progress=False)
     assert last["itr"] == 2 and np.isfinite(last["loss"])
-    assert [m["itr"] for m in run.logged] == [0, 1, 2]
+    assert [m["itr"] for m in run.logged if "imgs" not in m] == [0, 1, 2]
+    figs = [m for m in run.logged if "imgs" in m]
+    assert [m["itr"] for m in figs] == [0] and len(figs[0]["imgs"].axes) == 8
     assert sorted(p.name for p in (tmp_path / "loop").glob("*.ckpt")) == ["0000.ckpt", "0001.ckpt", "0002.ckpt"]
     assert tt.opt_state["gradient_step"] == 1 and tt.opt_state["mini_step"] == 1
 

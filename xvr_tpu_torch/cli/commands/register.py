@@ -3,10 +3,10 @@
 Counterpart of ``xvr_tpu.cli.commands.register`` on ``argparse``: the same
 options, short flags, defaults, ``nargs``, choices and help categories (as
 argument groups, in the JAX package's category order), and the same epilog.
-X-ray arguments may be files or directories globbed by ``--pattern``. Two
-differences: ``--device {cuda,cpu}`` (default ``cuda``) is the caller's
-request for a device, and ``--n_devices`` above 1 is refused by the
-registrar, which has no device mesh yet.
+X-ray arguments may be files or directories globbed by ``--pattern``. One
+addition: ``--device {cuda,cpu}`` (default ``cuda``) is the caller's request
+for a device; ``--n_devices`` above 1 registers on a data-parallel mesh of
+that many CUDA devices.
 """
 
 from __future__ import annotations
@@ -131,8 +131,8 @@ BASE_OPTIONS = [
                            help="X-rays registered per batched optimization (1 = one at a time)",
                            category="Optimizer")),
     (["--n_devices"], dict(default=None, type=int,
-                           help="Shard a batched registration over this many devices (default: "
-                                "single; a mesh is not available in this package yet)",
+                           help="Shard a batched registration over this many CUDA devices "
+                                "(default: single)",
                            category="Optimizer")),
     (["--device"], dict(default="cuda", choices=["cuda", "cpu"],
                         help="Device to register on; cpu runs the kernels' plain PyTorch versions",
@@ -155,11 +155,12 @@ _ORIENTATION = (["--orientation"], dict(default="AP", choices=["AP", "PA"],
 
 
 def _base_kwargs(kw):
-    # any mesh is refused by the registrar (NotImplementedError) until the
-    # device mesh is ported
-    mesh = kw["n_devices"] if kw.get("n_devices") and kw["n_devices"] > 1 else None
+    from .train import device_mesh
+
     return dict(
-        mesh=mesh,
+        # pure data parallelism over the X-ray batch (rays=1: a registration's
+        # renders split by rows only when its batch does not fill the mesh)
+        mesh=device_mesh(kw["device"], kw.get("n_devices"), rays=1),
         labels=kw["labels"], crop=kw["crop"],
         subtract_background=kw["subtract_background"], linearize=kw["linearize"],
         equalize=kw["equalize"], reducefn=kw["reducefn"], scales=kw["scales"],

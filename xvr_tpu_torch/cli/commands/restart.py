@@ -41,7 +41,7 @@ def restart(kw):
     config.pop("seed", None)
     project = kw["project"] or "xvr"
     run = start_run(project=project, name=project, config=config, id=kw["id"])
-    trainer = Trainer(**config, mesh=mesh_request(kw), device=kw["device"])
+    trainer = Trainer(**config, mesh=mesh_request(kw, "Resuming"), device=kw["device"])
     trainer.train(run)
     return trainer
 

@@ -3,8 +3,9 @@
 Counterpart of ``xvr_tpu.cli.commands.train`` on ``argparse``: the same
 options, short flags, defaults, ``nargs``, choices and help categories, in
 the JAX package's category order. ``--device {cuda,cpu}`` (default
-``cuda``) picks the device; ``--n_devices`` above 1 is refused by the
-trainer (no device mesh yet) and ``--mesh_rays`` is accepted for parity.
+``cuda``) picks the device. ``--n_devices`` (default: every CUDA device with
+``--device cuda``, else 1) above 1 trains on a device mesh of that many
+cards, ``--mesh_rays`` of them along the ray axis.
 """
 
 from __future__ import annotations
@@ -32,10 +33,10 @@ def _interval(help):
 
 
 N_DEVICES = (["--n_devices"], _opt(
-    "Devices to train on (default: one; a device mesh is not available in this package yet)",
-    "TPU", default=None, type=int))
+    "Devices to train on (default: every CUDA device with --device cuda, else one; above 1 "
+    "trains on a device mesh)", "TPU", default=None, type=int))
 MESH_RAYS = (["--mesh_rays"], _opt(
-    "Ray-parallel mesh axis size (accepted for parity; no device mesh yet)", "TPU",
+    "Ray-parallel mesh axis size (default: auto; 1 = pure data parallel)", "TPU",
     default=None, type=int))
 DEVICE = (["--device"], _opt("Device to train on; cpu runs the kernels' plain PyTorch versions",
                              "TPU", default="cuda", choices=["cuda", "cpu"]))
@@ -135,11 +136,32 @@ def add_options(parser: argparse.ArgumentParser, options, order) -> None:
         groups[kw.pop("category")].add_argument(*flags, **kw)
 
 
-def mesh_request(kw):
-    """The device-count request: above 1 it reaches the trainer, which
-    refuses it (no device mesh yet)."""
-    n = kw.get("n_devices")
-    return n if n is not None and n > 1 else None
+def device_mesh(device: str, n: int | None, rays: int | None = None):
+    """The device mesh of ``n`` CUDA devices that ``--n_devices`` asks for,
+    or None for one device. The CPU is one device."""
+    if n is None or n <= 1:
+        return None
+    if device != "cuda":
+        raise ValueError(f"--n_devices {n}: a device mesh needs {n} CUDA devices, and "
+                         f"--device {device} is one device")
+    from ...parallel import make_mesh
+
+    return make_mesh(n, rays=rays)
+
+
+def mesh_request(kw, verb: str):
+    """The trainer's mesh: ``--n_devices`` devices (default: every CUDA
+    device with ``--device cuda``) along ``--mesh_rays``, built only above
+    one device; ``verb`` names the run in the line that reports it."""
+    n = kw["n_devices"]
+    if n is None:
+        import torch
+
+        n = torch.cuda.device_count() if kw["device"] == "cuda" else 1
+    mesh = device_mesh(kw["device"], n, kw["mesh_rays"])
+    if mesh is not None:
+        print(f"{verb} on {n} devices, mesh {mesh.shape}", flush=True)
+    return mesh
 
 
 def train(kw):
@@ -179,7 +201,7 @@ def train(kw):
     )
     run = start_run(project=kw["project"], name=kw["name"] or kw["project"], config=config,
                     id=kw["id"])
-    trainer = Trainer(**config, mesh=mesh_request(kw), device=kw["device"])
+    trainer = Trainer(**config, mesh=mesh_request(kw, "Training"), device=kw["device"])
     trainer.train(run)
     return trainer
 

@@ -9,6 +9,15 @@ a rescoring of the last iterate. ``run_batch`` adds the optional wide
 coarse-stage sweep, multi-start pass 1 and the objective-gated re-anneal.
 Every image of a batch has its own optimizer state; an image whose plateau
 budget is spent freezes while the rest go on.
+
+Under a device ``mesh`` (:func:`xvr_tpu_torch.parallel.make_mesh`) a stage's
+renders are split over the mesh's slots, as the JAX package shards them: the
+stage's K images (X-rays times seeds) over every slot when K divides the
+mesh, else each shear-warp render by detector rows
+(:func:`~xvr_tpu_torch.parallel.ray_sharded_fast_render`); the golden
+renderers' images split as the former, and the slab kernels' renders stay
+whole. The similarity, Adam and the plateau state run on the first slot's
+device, which is the registrar's device.
 """
 
 from __future__ import annotations
@@ -117,11 +126,11 @@ class RegistrarBase:
         mesh=None,
         device="cuda",
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "device meshes are not ported to xvr_tpu_torch yet (ROADMAP: device mesh)"
-            )
-        self.device = torch.device(device)
+        # optional device mesh: a batched registration splits its renders over
+        # the slots (pure data parallelism, or rows of one render); the
+        # registrar then lives on the first slot's device
+        self.mesh = mesh
+        self.device = mesh.first if mesh is not None else torch.device(device)
         self.volume = volume
         self.mask = mask
         self.orientation = orientation
@@ -205,10 +214,28 @@ class RegistrarBase:
         use_pallas = projector.renderer == "trilinear_pallas"
 
         imagesim = make_imagesim(mncc_patch_size, gncc_patch_size, sigma, beta)
+        mesh = self.mesh
+
+        def render(pose, density, packed, prepared):
+            B = pose.matrix.shape[0]
+            if mesh is None or use_pallas or (B % mesh.size and not use_fast):
+                return projector(pose, density=density, packed=packed, prepared=prepared)
+            from ..parallel import mesh as pmesh
+
+            if B % mesh.size == 0:
+                # each slot renders its share of the images whole
+                raw = pmesh.batch_sharded_render(mesh, projector, pose, density=density,
+                                                 prepared=prepared)
+            else:
+                # a batch that does not divide the mesh: every render's rows
+                # split over the slots, so a single registration uses them all
+                raw = pmesh.ray_sharded_fast_render(mesh, projector, pose, density=density,
+                                                    prepared=prepared)
+            return projector.reshape_transform(raw, B)
 
         def similarity(rot, xyz, gt, density, packed, prepared):
             pose = convert(rot, xyz, parameterization=parameterization, convention=convention)
-            img = projector(pose, density=density, packed=packed, prepared=prepared)
+            img = render(pose, density, packed, prepared)
             return imagesim(gt, transform(img))
 
         def stage(rot, xyz, gt, density, lr_rot, lr_xyz):
@@ -425,6 +452,13 @@ class RegistrarBase:
         Returns a list of K per-image result tuples, each shaped like a
         :meth:`run` result."""
         n_files = len(i2ds)
+        if (self.mesh is not None and n_files % self.mesh.size
+                and n_files * self.restart_seeds >= self.mesh.size):
+            # pad to a full set of slots with repeats of the last X-ray (their
+            # results are computed and dropped); a batch too small to fill
+            # the mesh is not padded: its renders are split by rows instead
+            pad = self.mesh.size - n_files % self.mesh.size
+            i2ds = list(i2ds) + [i2ds[-1]] * pad
         inits = [self.initialize_pose(i2d) for i2d in i2ds]
         intrs = [tuple(float(v) for v in x[1:6]) for x in inits]  # sdd..y0
         shapes = [tuple(x[0].shape[-2:]) for x in inits]

@@ -115,6 +115,18 @@ class Projector:
     def replace(self, **kwargs) -> "Projector":
         return _replace(self, **kwargs)
 
+    def to(self, device) -> "Projector":
+        """The projector with its volume and density on ``device`` (itself
+        when they are there already)."""
+        device = torch.device(device)
+        if self.density.device == device:
+            return self
+        v = self.volume
+        vol = Volume(data=v.data.to(device), affine=v.affine.to(device),
+                     mask=None if v.mask is None else v.mask.to(device),
+                     orientation=v.orientation)
+        return self.replace(volume=vol, density=self.density.to(device))
+
     def set_intrinsics(self, **kwargs) -> "Projector":
         det = self.detector.replace(**{k: v for k, v in kwargs.items() if v is not None})
         return self.replace(detector=det)

@@ -47,8 +47,11 @@ Function, so that autograd carries that subtraction's cotangent into it.
 
 ``backward="slab"`` pairs the shear-warp forward with the slab kernel's VJP
 (K6, :mod:`~xvr_tpu_torch.render.pallas`), as the JAX package's cross-check
-does (single-channel only). ``grid_bounds`` ray sharding waits for the
-device mesh and raises ``NotImplementedError``. ``warp_window`` and
+does (single-channel only). ``grid_bounds = (u0, du, v0, dv, sgn)``, each
+(B,), replaces the per-call fit of the slope grid and the march sign; fitted
+to a full detector by :func:`shearwarp_grid_bounds`, it makes every ray block
+of a ray-sharded render (:mod:`xvr_tpu_torch.parallel`) accumulate and warp
+from the identical slope image. ``warp_window`` and
 ``warp_remap`` size TPU gather tiles; the GPU warp reads any grid cell, so
 they are accepted and ignored.
 """
@@ -62,11 +65,6 @@ from . import _cuda
 from .layout import _choose_permutation
 
 MAX_LANE = 1536  # slope-grid extent cap, as in the JAX package's warp
-
-
-def _not_ported(what: str, item: str):
-    """``item``: the title of the ROADMAP entry that ports ``what``."""
-    return NotImplementedError(f"{what} is not ported to xvr_tpu_torch yet (ROADMAP: {item})")
 
 
 def prepare_shearwarp(density: torch.Tensor, perm, mask=None, labels=None) -> torch.Tensor:
@@ -375,22 +373,48 @@ def _decompose(affine_inverse, source, target, perm):
     return s_p, d_p, wscale
 
 
-def _slope_pieces(d_p, Iu: int, Iv: int):
-    """Per-ray slopes and the (constant, detached) slope-grid transform."""
+def _slope_pieces(d_p, Iu: int, Iv: int, bounds=None):
+    """Per-ray slopes and the (constant, detached) slope-grid transform,
+    fitted to these rays or, with ``bounds`` = (u0, du, v0, dv), given."""
     d0 = d_p[..., 0]
     safe_d0 = torch.where(torch.abs(d0) < 1e-6, torch.full_like(d0, 1e-6), d0)
     u = d_p[..., 1] / safe_d0
     v = d_p[..., 2] / safe_d0
-    u0, du = _grid_transform(u.min(dim=1).values, u.max(dim=1).values, Iu)
-    v0, dv = _grid_transform(v.min(dim=1).values, v.max(dim=1).values, Iv)
+    if bounds is None:
+        u0, du = _grid_transform(u.min(dim=1).values, u.max(dim=1).values, Iu)
+        v0, dv = _grid_transform(v.min(dim=1).values, v.max(dim=1).values, Iv)
+    else:
+        u0, du, v0, dv = bounds
     u0, du, v0, dv = (x.detach() for x in (u0, du, v0, dv))
     uc = (u - u0[:, None]) / du[:, None]
     vc = (v - v0[:, None]) / dv[:, None]
     return safe_d0, u0, du, v0, dv, uc, vc
 
 
-def _march_sign(d_p) -> torch.Tensor:
+def _march_sign(d_p, grid_bounds=None) -> torch.Tensor:
+    if grid_bounds is not None:
+        return grid_bounds[4].detach()
     return torch.sign(d_p[..., 0].mean(dim=1)).detach()
+
+
+def _grid(d_p, Iu: int, Iv: int, grid_bounds=None):
+    """(sgn, safe_d0, u0, du, v0, dv, uc, vc) of a render: the slope grid
+    and march sign fitted to these rays, or ``grid_bounds``."""
+    pieces = _slope_pieces(d_p, Iu, Iv, None if grid_bounds is None else grid_bounds[:4])
+    return (_march_sign(d_p, grid_bounds), *pieces)
+
+
+def shearwarp_grid_bounds(affine_inverse, source, target, *, perm, grid_shape):
+    """The slope-grid transform and march sign of a full detector's rays ->
+    ``(u0, du, v0, dv, sgn)``, each (B,) and detached. Passed as
+    ``grid_bounds`` to the entry points, they make each ray block of a
+    sharded render accumulate and warp against the identical slope grid, so
+    that the blocks together equal the unsharded render."""
+    Iu, Iv = grid_shape
+    with torch.no_grad():
+        _, d_p, _ = _decompose(affine_inverse, source, target, tuple(int(p) for p in perm))
+        sgn, _, u0, du, v0, dv, _, _ = _grid(d_p, Iu, Iv)
+    return u0, du, v0, dv, sgn
 
 
 def _accumulate_any(prepared, s, sgn, u0, du, v0, dv, *, Iu: int, Iv: int, eps: float,
@@ -417,12 +441,12 @@ def _fold(I, *rays):
     return (I.reshape(C * B, *I.shape[2:]), *(x.repeat(C, 1).contiguous() for x in rays))
 
 
-def _render_fields(prepared, s_p, d_p, wscale, grid_shape, eps, chan_bounds=None):
+def _render_fields(prepared, s_p, d_p, wscale, grid_shape, eps, chan_bounds=None,
+                   grid_bounds=None):
     """Forward: accumulate (K1) then warp (K2). Returns (out, I): out (B, R),
     or (B, C, R) channels [full, labels...] for a channel stack."""
     Iu, Iv = grid_shape
-    _, u0, du, v0, dv, uc, vc = _slope_pieces(d_p, Iu, Iv)
-    sgn = _march_sign(d_p)
+    sgn, _, u0, du, v0, dv, uc, vc = _grid(d_p, Iu, Iv, grid_bounds)
     I = _accumulate_any(prepared, s_p[:, 0, :], sgn, u0, du, v0, dv, Iu=Iu, Iv=Iv, eps=eps,
                         bounds=chan_bounds)
     if I.ndim == 3:
@@ -442,15 +466,17 @@ def _public_channels(out: torch.Tensor) -> torch.Tensor:
 
 class _FastRender(torch.autograd.Function):
     """Shear-warp forward with the analytic shear-warp adjoint as backward
-    (the counterpart of the JAX package's ``_fast_fwd``/``_fast_bwd``)."""
+    (the counterpart of the JAX package's ``_fast_fwd``/``_fast_bwd``).
+    ``grid_bounds`` are constants: they get no gradient."""
 
     @staticmethod
-    def forward(ctx, prepared, affine_inverse, source, target, cfg):
+    def forward(ctx, prepared, affine_inverse, source, target, cfg, grid_bounds):
         grid_shape, perm, eps, _, chan_bounds = cfg
         s_p, d_p, wscale = _decompose(affine_inverse, source, target, perm)
-        out, I = _render_fields(prepared, s_p, d_p, wscale, grid_shape, eps, chan_bounds)
+        out, I = _render_fields(prepared, s_p, d_p, wscale, grid_shape, eps, chan_bounds,
+                                grid_bounds)
         ctx.save_for_backward(prepared, affine_inverse, source, target, I)
-        ctx.cfg = cfg
+        ctx.cfg, ctx.grid_bounds = cfg, grid_bounds
         return out
 
     @staticmethod
@@ -471,10 +497,9 @@ class _FastRender(torch.autograd.Function):
                 fields = _fields(s_p, d_p, wscale)
             g_fields = slab_backward(prepared, fields.detach(), g.contiguous())
             g_src, g_tgt = torch.autograd.grad(fields, (src, tgt), g_fields)
-            return None, None, g_src, g_tgt, None
+            return None, None, g_src, g_tgt, None, None
         dp, ws = d_p.detach(), wscale.detach()
-        safe_d0, u0, du, v0, dv, uc, vc = _slope_pieces(dp, Iu, Iv)
-        sgn = _march_sign(dp)
+        sgn, safe_d0, u0, du, v0, dv, uc, vc = _grid(dp, Iu, Iv, ctx.grid_bounds)
         s = s_p[:, 0, :].detach()
         kw = dict(Iu=Iu, Iv=Iv, eps=eps)
         if I.ndim == 4:
@@ -511,16 +536,14 @@ class _FastRender(torch.autograd.Function):
         g_s = torch.zeros_like(s_p)
         g_s[:, 0, :] = g_s_scalar
         g_src, g_tgt = torch.autograd.grad((s_p, d_p, wscale), (src, tgt), (g_s, g_d, g_ws))
-        return None, None, g_src, g_tgt, None
+        return None, None, g_src, g_tgt, None, None
 
 
 def _resolve(density, affine_inverse, source, target, det_shape, perm, prepared, grid_shape,
-             mask, labels, grid_bounds):
+             mask, labels):
     """Shared argument handling of the entry points."""
     if source.shape[-2] != 1:
         raise ValueError("shear-warp requires a point source: source (B, 1, 3)")
-    if grid_bounds is not None:
-        raise _not_ported("grid_bounds (ray-sharded shear-warp)", "device mesh")
     if perm is None:
         d_mean = (target.mean(dim=(0, 1)) - source.mean(dim=(0, 1))).detach().cpu().numpy()
         A = affine_inverse.detach().cpu().numpy()
@@ -554,16 +577,17 @@ def raymarch_trilinear_shearwarp(
     :func:`channel_slab_bounds` restricts each label channel to its slabs.
 
     ``source`` (B, 1, 3) (a point source) and ``target`` (B, R, 3) in world
-    mm. ``warp_window``, ``unroll`` and ``warp_remap`` are accepted for
-    signature parity and ignored."""
+    mm. ``grid_bounds`` as in :func:`shearwarp_grid_bounds`. ``warp_window``,
+    ``unroll`` and ``warp_remap`` are accepted for signature parity and
+    ignored."""
     perm, prepared, grid_shape = _resolve(
         density, affine_inverse, source, target, det_shape, perm, prepared, grid_shape,
-        mask, labels, grid_bounds,
+        mask, labels,
     )
     with torch.no_grad():
         s_p, d_p, wscale = _decompose(affine_inverse, source, target, perm)
         out = _render_fields(prepared, s_p, d_p, wscale, grid_shape, float(eps),
-                             _bounds(chan_bounds))[0]
+                             _bounds(chan_bounds), grid_bounds)[0]
         return _public_channels(out)
 
 
@@ -582,19 +606,21 @@ def raymarch_trilinear_fast(
     with the analytic shear-warp adjoint (K3, warp transpose, K4) as its
     backward, or with ``backward="slab"`` the slab kernel's VJP (K6), a
     cross-check (single-channel only). Gradients flow to ``source`` and
-    ``target``. Channels as in :func:`raymarch_trilinear_shearwarp`.
+    ``target``; ``grid_bounds`` (:func:`shearwarp_grid_bounds`) are constants.
+    Channels as in :func:`raymarch_trilinear_shearwarp`.
     ``packed`` and ``slab_window`` are accepted for signature parity: both
     backwards read ``prepared``."""
     if backward not in ("shearwarp", "slab"):
         raise ValueError(f"unknown backward {backward!r}")
     perm, prepared, grid_shape = _resolve(
         density, affine_inverse, source, target, det_shape, perm, prepared, grid_shape,
-        mask, labels, grid_bounds,
+        mask, labels,
     )
     if prepared.ndim == 4 and backward == "slab":
         raise ValueError("backward='slab' does not support channel rendering")
     cfg = (grid_shape, perm, float(eps), backward, _bounds(chan_bounds))
-    return _public_channels(_FastRender.apply(prepared, affine_inverse, source, target, cfg))
+    return _public_channels(
+        _FastRender.apply(prepared, affine_inverse, source, target, cfg, grid_bounds))
 
 
 def raymarch_siddon_fast(*args, eps: float = 0.25, **kwargs) -> torch.Tensor:

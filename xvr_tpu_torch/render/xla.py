@@ -108,9 +108,9 @@ def raymarch_trilinear(
     """Fixed-step ray marching with trilinear interpolation (midpoint rule).
 
     Rays are processed in ``ray_chunk``-sized pieces when B * R * S is large,
-    which bounds the (B, R, S, 3) sample tensors. With ``mask`` and
-    ``labels`` each sample goes to the channel of its nearest voxel's label
-    -> (B, C, R)."""
+    which bounds the (B, R, S, 3) sample tensors (:func:`raymarch_trilinear_scan`
+    builds none). With ``mask`` and ``labels`` each sample goes to the channel
+    of its nearest voxel's label -> (B, C, R)."""
     B, R = target.shape[0], target.shape[1]
     if ray_chunk is None and B * R * n_samples > 2**25:
         ray_chunk = max(1, 2**25 // (max(B, 1) * n_samples))
@@ -140,6 +140,34 @@ def raymarch_trilinear(
         return torch.sum(vals * step, dim=-1)
     w = _channel_weights(nearest_label(mask, pts), labels)  # (B, R, S, C)
     return torch.einsum("brs,brsc->bcr", vals * step, w)
+
+
+def raymarch_trilinear_scan(
+    density: torch.Tensor,
+    affine_inverse: torch.Tensor,
+    source: torch.Tensor,
+    target: torch.Tensor,
+    n_samples: int = 256,
+) -> torch.Tensor:
+    """Memory-lean trilinear march: a loop over the sample depths.
+
+    The math and the midpoint samples of :func:`raymarch_trilinear`, but the
+    (B, R, S, 3) sample tensor is never built: each depth's samples are
+    summed into a (B, R) accumulator, so the peak memory is O(B * R).
+    Optimized for the forward pass; prefer :func:`raymarch_trilinear` when
+    the backward's memory is not a concern."""
+    s_vox = _apply_affine(affine_inverse, source)
+    t_vox = _apply_affine(affine_inverse, target)
+    s_vox = s_vox.expand(t_vox.shape)
+    d_vox = t_vox - s_vox
+    raylen = torch.linalg.norm(target - source.expand(target.shape), dim=-1)
+    a_in, a_out = _aabb_alphas(s_vox, d_vox, density.shape)
+    span = a_out - a_in
+    acc = torch.zeros(a_in.shape, dtype=density.dtype, device=density.device)
+    for k in range(n_samples):
+        alpha = a_in + span * (k + 0.5) / n_samples
+        acc = acc + trilinear_sample(density, s_vox + alpha[..., None] * d_vox)
+    return acc * span / n_samples * raylen
 
 
 def raymarch_siddon(

@@ -17,6 +17,13 @@ kernels (K5/K6; K7/K6 with a labelmap). ``XVR_NO_PALLAS=1`` turns the upgrade of
 permutations and the strata are chosen as the JAX trainer chooses them; the
 GPU kernels have no gather window, so the windows are not measured. The CNN runs in float32 (PyTorch's default TF32
 convolutions on the card).
+
+Under a device ``mesh`` (:func:`xvr_tpu_torch.parallel.make_mesh`) the batch
+is a multiple of the mesh size and so is every stratum's share; each
+stratum's shear-warp render splits its poses over every slot, the other
+renderers split the rays over (dp, rays), and the CNN's batch splits over
+every slot. The weights, the optimizer and the losses stay on the first
+slot's device, which is the trainer's.
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ import torch
 from ..geometry import RigidTransform, convert, make_translation
 from ..io.volumes import read
 from ..models import PoseRegressor, init_pose_regressor
+from ..parallel import batch_sharded_render, gather, ray_sharded_render, shard_batch_flat
 from ..render.projector import Projector
 from ..render.volume import Volume, transform_hu_to_density
 from ..state import from_flax_params, to_flax_params
@@ -71,9 +79,9 @@ class Trainer:
     """Train a PoseRegressor on DRRs rendered at random poses.
 
     The JAX trainer's argument surface; ``num_workers``/``pin_memory`` are
-    accepted and unused (the volumes stay on the device), ``mesh`` other
-    than None raises (no device mesh yet), and ``device`` picks the device
-    (the card unless the caller asks for the CPU)."""
+    accepted and unused (the volumes stay on the device). ``device`` picks
+    the device (the card unless the caller asks for the CPU); with a
+    ``mesh`` the trainer runs on its first slot's device instead."""
 
     def __init__(
         self,
@@ -122,11 +130,8 @@ class Trainer:
         for k in ("self", "mesh", "device"):  # runtime choices, not checkpointed config
             cfg.pop(k)
         self.config = cfg
-        if mesh is not None:
-            raise NotImplementedError(
-                "device meshes are not ported to xvr_tpu_torch yet (ROADMAP: device mesh)"
-            )
-        self.device = torch.device(device)
+        self.mesh = mesh  # runtime topology, not checkpointed config
+        self.device = mesh.first if mesh is not None else torch.device(device)
 
         # "<family>_exact" pins the golden renderers and opts out of every
         # kernel upgrade
@@ -136,6 +141,13 @@ class Trainer:
         self.outpath = Path(outpath)
         self.outpath.mkdir(parents=True, exist_ok=True)
         self.batch_size = int(batch_size)
+        if mesh is not None and self.batch_size % mesh.size:
+            # the batch splits exactly over every slot
+            rounded = -(-self.batch_size // mesh.size) * mesh.size
+            print(f"multi-chip: batch_size {self.batch_size} -> {rounded} "
+                  f"(multiple of {mesh.size} devices)", flush=True)
+            self.batch_size = rounded
+            cfg["batch_size"] = rounded
         self.height = int(height)
         self.n_total_itrs = int(n_total_itrs)
         self.n_grad_accum_itrs = int(n_grad_accum_itrs)
@@ -308,7 +320,9 @@ class Trainer:
         subject) projector to shear-warp. Succeeds only if every stratum
         passes the steepness gate with one permutation shared by the
         subjects; label bounds are the union over subjects; batch shares are
-        proportional to the strata's widths (largest remainder)."""
+        proportional to the strata's widths (largest remainder), in units of
+        the mesh size under a mesh, so that every stratum splits exactly
+        over the slots."""
         r = self.pose_ranges
         edges = np.asarray(edges, dtype=np.float64)
         K = len(edges) - 1
@@ -331,13 +345,16 @@ class Trainer:
             strata_projs.append([p.replace(shearwarp_bounds=bounds) for p in upgraded])
             strata_ranges.append(sub)
 
+        unit = 1 if self.mesh is None else self.mesh.size
+        units_total = self.batch_size // unit
         widths = np.diff(edges)
-        exact = widths / widths.sum() * self.batch_size
+        exact = widths / widths.sum() * units_total
         counts = np.floor(exact).astype(int)
-        for i in np.argsort(exact - counts)[::-1][: self.batch_size - counts.sum()]:
+        for i in np.argsort(exact - counts)[::-1][: units_total - counts.sum()]:
             counts[i] += 1
         if (counts <= 0).any():
             return False
+        counts = counts * unit
         self.projectors = [tuple(strata_projs[k][s] for k in range(K)) for s in range(len(flat))]
         self.strata_ranges = strata_ranges
         self.strata_counts = tuple(int(c) for c in counts)
@@ -389,15 +406,42 @@ class Trainer:
         return dict(pose=pose, contrast=contrast, aug=aug)
 
     def render_batch(self, projectors, pose: RigidTransform, density, packed, prepared):
-        """Render the pose batch stratum by stratum -> (B, C, H, W)."""
+        """Render the pose batch stratum by stratum -> (B, C, H, W). Under a
+        mesh a shear-warp stratum splits its poses over every slot (each
+        slot renders whole images: the factorization is per image), any
+        other its rays over (dp, rays)."""
         offsets = np.concatenate([[0], np.cumsum(self.strata_counts)])
         imgs = []
         for k, proj in enumerate(projectors):
             pose_k = RigidTransform(pose.matrix[int(offsets[k]):int(offsets[k + 1])])
-            src, tgt = proj.rays(pose_k)
-            raw = proj.render_rays(src, tgt, density=density, packed=packed[k], prepared=prepared[k])
+            kw = dict(density=density, packed=packed[k], prepared=prepared[k])
+            if self.mesh is None:
+                raw = proj.render_rays(*proj.rays(pose_k), **kw)
+            elif proj.renderer.endswith(_FAST):
+                raw = batch_sharded_render(self.mesh, proj, pose_k, **kw)
+            else:
+                raw = ray_sharded_render(self.mesh, proj, pose_k, **kw)
             imgs.append(proj.reshape_transform(raw, int(self.strata_counts[k])))
         return torch.cat(imgs) if len(imgs) > 1 else imgs[0]
+
+    def apply_model(self, x: torch.Tensor):
+        """The CNN on the batch ``x`` -> (rot, xyz). Under a mesh the batch
+        splits over every slot: on one physical device the module runs per
+        chunk; over several, on one replica per device, the gradients
+        reduced to the first (GroupNorm keeps each image's outputs
+        independent of the split)."""
+        if self.mesh is None:
+            return self.model(x)
+        chunks = shard_batch_flat(self.mesh, x)
+        devices = list(dict.fromkeys(self.mesh.slots))
+        if len(devices) == 1:
+            outs = [self.model(c) for c in chunks]
+        else:
+            replicas = dict(zip(devices, torch.nn.parallel.replicate(self.model, devices)))
+            outs = torch.nn.parallel.parallel_apply(
+                [replicas[d] for d in self.mesh.slots], [(c,) for c in chunks],
+                devices=self.mesh.slots)
+        return tuple(gather(self.mesh, parts) for parts in zip(*outs))
 
     def loss_and_grads(self, projectors, center, draws: dict):
         """Loss, metrics and the parameter gradients of one step, given its
@@ -420,7 +464,7 @@ class Trainer:
                 keep = fg.mean(dim=(1, 2, 3)) > IMG_THRESHOLD
             keep = keep.to(img.dtype)
             x = self.transforms(apply_augmentations(img, draws["aug"]))
-        rot, xyz = self.model(x)
+        rot, xyz = self.apply_model(x)
         pred_pose = self.model.decode(rot, xyz)
         if self.reframe is not None:
             pred_pose = pred_pose.compose(self.reframe)
@@ -519,13 +563,39 @@ class Trainer:
         if run is not None:
             run.log(metrics)
 
+    def figure_images(self, pose: RigidTransform) -> torch.Tensor:
+        """The figures' DRRs: the first subject rendered with the golden
+        trilinear renderer at ``pose`` (about the isocentre), then at the
+        CNN's predicted poses from those renders -> (2n, 1, H, W)."""
+        proj = self.projectors[0][0].replace(renderer="trilinear")
+        pose = pose.compose(make_translation(self.centers[0]))
+        with torch.no_grad():
+            img = proj(pose).sum(dim=1, keepdim=True)
+            rot, xyz = self.model(self.transforms(img))
+            pred_pose = self.model.decode(rot, xyz)
+            if self.reframe is not None:
+                pred_pose = pred_pose.compose(self.reframe)
+            pred = proj(pred_pose).sum(dim=1, keepdim=True)
+        return torch.cat([img, pred])
+
     def _log_figures(self, itr: int, run, n: int = 4):
-        """Target/predicted DRR grids for the experiment log: they need the
-        port's ``visualization`` package."""
-        raise NotImplementedError(
-            "training figures need visualization/, not ported to xvr_tpu_torch yet "
-            "(ROADMAP: visualization)"
-        )
+        """Log a 2 x n grid of target and predicted DRRs at n random poses of
+        the first stratum, drawn from the trainer's generator."""
+        import matplotlib
+
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+
+        from ..visualization.viz2d import plot_drr
+
+        pose = get_random_pose(self.generator, batch_size=n, device=self.device,
+                               **self.strata_ranges[0])
+        imgs = self.figure_images(pose).cpu().numpy()
+        fig, axs = plt.subplots(ncols=n, nrows=2, figsize=(2 * n, 4))
+        plot_drr(imgs, axs=axs.flatten(), ticks=False)
+        plt.tight_layout()
+        run.log({"itr": itr, "imgs": fig})
+        plt.close(fig)
 
     def _checkpoint(self, itr: int):
         path = self.outpath / f"{self.model_number:04d}.ckpt"
