@@ -15,7 +15,9 @@ through ``Projector(labels=...)`` runs K7 (and K6 for its gradient) and a
 entry point, ``python -m xvr_tpu_torch.cli register model|restart|dicom``,
 runs in process on the same scene from a synthetic ResNet-34 checkpoint, and
 ``python -m xvr_tpu_torch.cli train|restart`` trains the pose CNN on the CT
-with a two-label mask (finetune configuration, batch 116 at 128^2).
+with a two-label mask (finetune configuration, batch 116 at 128^2). Last,
+the published DeepFluoro register and evaluate runs of ``scripts/torch``
+run in process on a subject written in the converted-dataset layout.
 
 Phases (each prints one or more lines; any failure exits non-zero):
 
@@ -73,6 +75,22 @@ Phases (each prints one or more lines; any failure exits non-zero):
              launches per step; animate's render_trajectory over phase 5's
              restart bundle (~20 frames, 3 held against the CPU); dcm2nii
              through the CLI on a 16x12x8 series
+8. workflows scripts/torch's DeepFluoro runs on a synthetic subject in
+             the layout convert_datasets.py writes (the bench CT with a
+             seven-label mask whose labels 5 and 6 hold under 10% of the
+             bone, two 1436^2 X-rays of the whole CT rendered at two poses,
+             a synthetic finetuned checkpoint; K1-K4 at its shapes, B=8 on
+             the masked density, in phase 3's block): the xvr-torch line of
+             deepfluoro/register/finetuned.sh as published (crop 100,
+             --linearize, --labels 1,2,3,4,7, scales 24,12,6 x 500; K1-K4
+             launch counts of its run, the masked density packed for K1,
+             mTRE < 1 mm, the objective at GT and at the final pose), the
+             loop of deepfluoro/evaluate/finetuned.sh (--warp --init_only,
+             no kernel; the identity warp leaves the init pose bit for bit)
+             and its evaluate line, evaluate.py on the register run (its
+             mTRE the registrar's poses' within 1e-3 mm) and
+             validate_convention.py (exit 0); a ``workflows`` line with each
+             command's wall time beside the card's name and power limit
 
 The line before the last is one JSON object with a record per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -533,6 +551,52 @@ def stage_cases(projector, pose16, pose4):
             ("mid B=4", pose4, s_mid), ("fine B=4", pose4, s_fine)]
 
 
+def check_sw_stage(vol, proj, pose, label):
+    """K1-K4 against their plain versions at one stage's shape: the inputs
+    of one fast render of ``pose`` through ``proj`` on the packed volume
+    ``vol``; K1 and K4 at eps 1.0 and 0.25, K2 and K3 on K1's eps-1.0 image,
+    each held bit for bit over REPEATS more calls (tolerances: see
+    :func:`phase_kernels`). -> (inputs, K1's image and K4's cotangent image
+    at eps 1.0, {kernel: max abs error}, tag)."""
+    from xvr_tpu_torch.render import _cuda
+    from xvr_tpu_torch.render import shearwarp as sw
+
+    det = (proj.detector.height, proj.detector.width)
+    x = path_inputs(proj, pose, seed=1)
+    Iu, Iv = x["grid"]
+    B, R = x["uc"].shape
+    args = (x["s"], x["sgn"], x["u0"], x["du"], x["v0"], x["dv"])
+    errs, out = {}, None
+    for eps in (1.0, 0.25):
+        tag = f"{label} det {det[0]}x{det[1]} grid {Iu}x{Iv} eps {eps}"
+        kw = dict(Iu=Iu, Iv=Iv, eps=eps)
+        k1 = sw.accumulate(vol, *args, **kw)
+        r1 = sw._accumulate(vol, *(a.double() for a in args), bf16=False, **kw)
+        e1 = check("K1 sw_accumulate", k1.double(), r1, tag, 2e-5 * float(r1.abs().max()), 2e-4)
+        same_bits("K1 sw_accumulate", k1, lambda: sw.accumulate(vol, *args, **kw), tag)
+        log(f"    vs JAX bf16 recipe: {float((k1 - sw._accumulate(vol, *args, **kw)).abs().max()):.3e}")
+        # K4 on the cotangent image of a random detector cotangent
+        ibar = sw._warp_transpose(x["g"] * x["ws"], x["uc"], x["vc"], grid_shape=(Iu, Iv))
+        k4 = sw.accumulate_adjoint(vol, *args, ibar, **kw)
+        r4 = sw._accumulate_adjoint(vol, *args, ibar, bf16=False, **kw)
+        e4 = check("K4 sw_accumulate_adjoint", k4, r4, tag, 1e-4 * float(r4.abs().max()), 1e-3)
+        same_bits("K4 sw_accumulate_adjoint", k4,
+                  lambda: sw.accumulate_adjoint(vol, *args, ibar, **kw), tag)
+        log(f"    vs JAX bf16 recipe: {float((k4 - sw._accumulate_adjoint(vol, *args, ibar, **kw)).abs().max()):.3e}")
+        errs["sw_accumulate"] = max(errs.get("sw_accumulate", 0.0), e1)
+        errs["sw_accumulate_adjoint"] = max(errs.get("sw_accumulate_adjoint", 0.0), e4)
+        if eps != 1.0:
+            continue
+        for name, grads in (("K2", False), ("K3", True)):
+            threads, pix = _cuda.warp_plan(B, R, grads, _cuda.sm_count(k1.device))
+            log(f"  {name} {tag}: plan {threads} threads x {pix} pixels per thread, "
+                f"{-(-B * R // (threads * pix))} blocks")
+        errs["sw_warp"], errs["sw_warp_grads"] = check_warps(k1, x["uc"], x["vc"], x["ws"], tag)
+        out = (x, k1, ibar, tag)
+    x, k1, ibar, tag = out
+    return x, k1, ibar, errs, tag
+
+
 def phase_kernels(projector, pose16, pose4, time_ms=cuda_time_ms):
     """K1-K4 against their plain versions at the path's shapes (those of
     :func:`stage_cases`).
@@ -557,99 +621,72 @@ def phase_kernels(projector, pose16, pose4, time_ms=cuda_time_ms):
     records, calls = {}, []
     cases = stage_cases(projector, pose16, pose4)
 
-    def f64(*xs):
-        return [x.double() for x in xs]
-
     for label, pose, scale in cases:
         proj = projector.rescale_detector(scale)
         det = (proj.detector.height, proj.detector.width)
-        x = path_inputs(proj, pose, seed=1)
+        x, k1, ibar, errs, tag = check_sw_stage(vol, proj, pose, label)
+        eps = 1.0  # the times' and the warps' image
         Iu, Iv = x["grid"]
         B, R = x["uc"].shape
         args = (x["s"], x["sgn"], x["u0"], x["du"], x["v0"], x["dv"])
         warp_args = (x["uc"], x["vc"], x["ws"])
-        for eps in (1.0, 0.25):
-            tag = f"{label} det {det[0]}x{det[1]} grid {Iu}x{Iv} eps {eps}"
-            kw = dict(Iu=Iu, Iv=Iv, eps=eps)
-            k1 = sw.accumulate(vol, *args, **kw)
-            r1 = sw._accumulate(vol, *f64(*args), bf16=False, **kw)
-            e1 = check("K1 sw_accumulate", k1.double(), r1, tag, 2e-5 * float(r1.abs().max()), 2e-4)
-            same_bits("K1 sw_accumulate", k1, lambda: sw.accumulate(vol, *args, **kw), tag)
-            log(f"    vs JAX bf16 recipe: {float((k1 - sw._accumulate(vol, *args, **kw)).abs().max()):.3e}")
-            # K4 on the cotangent image of a random detector cotangent
-            ibar = sw._warp_transpose(x["g"] * x["ws"], x["uc"], x["vc"], grid_shape=(Iu, Iv))
-            k4 = sw.accumulate_adjoint(vol, *args, ibar, **kw)
-            r4 = sw._accumulate_adjoint(vol, *args, ibar, bf16=False, **kw)
-            e4 = check("K4 sw_accumulate_adjoint", k4, r4, tag, 1e-4 * float(r4.abs().max()), 1e-3)
-            same_bits("K4 sw_accumulate_adjoint", k4,
-                      lambda: sw.accumulate_adjoint(vol, *args, ibar, **kw), tag)
-            log(f"    vs JAX bf16 recipe: {float((k4 - sw._accumulate_adjoint(vol, *args, ibar, **kw)).abs().max()):.3e}")
-            if eps != 1.0:
-                continue
-            for name, grads in (("K2", False), ("K3", True)):
-                threads, pix = _cuda.warp_plan(B, R, grads, _cuda.sm_count(k1.device))
-                log(f"  {name} {tag}: plan {threads} threads x {pix} pixels per thread, "
-                    f"{-(-B * R // (threads * pix))} blocks")
-            e2, e3 = check_warps(k1, *warp_args, tag)
 
-            # times at this shape (eps 1.0)
-            reps = 20
-            # library yardstick for the warps: grid_sample on the same image
-            gx = (x["vc"] / (Iv - 1)) * 2 - 1
-            gy = (x["uc"] / (Iu - 1)) * 2 - 1
-            grid_n = torch.stack([gx, gy], -1).reshape(B, 1, R, 2)
-            img = k1[:, None]
-            grid_sample = partial(F.grid_sample, img, grid_n, mode="bilinear", align_corners=True)
-            calls.append(dict(  # bound now: the loop variables move on
-                sw_accumulate=partial(sw.accumulate, vol, *args, Iu=Iu, Iv=Iv, eps=eps),
-                sw_accumulate_adjoint=partial(sw.accumulate_adjoint, vol, *args, ibar, Iu=Iu,
-                                              Iv=Iv, eps=eps),
-                sw_warp=partial(sw.warp, k1, *warp_args),
-                sw_warp_grads=partial(sw.warp_with_grads, k1, *warp_args),
-                grid_sample=grid_sample,
-            ))
-            t = {
-                "sw_accumulate": (
-                    time_ms(lambda: sw.accumulate(vol, *args, Iu=Iu, Iv=Iv, eps=eps), reps),
-                    time_ms(lambda: sw._accumulate(vol, *args, Iu=Iu, Iv=Iv, eps=eps), 3),
-                    None,
-                ),
-                "sw_accumulate_adjoint": (
-                    time_ms(lambda: sw.accumulate_adjoint(vol, *args, ibar, Iu=Iu, Iv=Iv, eps=eps), reps),
-                    time_ms(lambda: sw._accumulate_adjoint(vol, *args, ibar, Iu=Iu, Iv=Iv, eps=eps), 3),
-                    None,
-                ),
-            }
-            lib = time_ms(grid_sample, reps)
-            t["sw_warp"] = (
-                time_ms(lambda: sw.warp(k1, x["uc"], x["vc"], x["ws"]), reps),
-                time_ms(lambda: sw._warp_plain(k1, x["uc"], x["vc"], x["ws"]), reps),
-                lib,
+        # times at this shape (eps 1.0)
+        reps = 20
+        # library yardstick for the warps: grid_sample on the same image
+        gx = (x["vc"] / (Iv - 1)) * 2 - 1
+        gy = (x["uc"] / (Iu - 1)) * 2 - 1
+        grid_n = torch.stack([gx, gy], -1).reshape(B, 1, R, 2)
+        img = k1[:, None]
+        grid_sample = partial(F.grid_sample, img, grid_n, mode="bilinear", align_corners=True)
+        calls.append(dict(  # bound now: the loop variables move on
+            sw_accumulate=partial(sw.accumulate, vol, *args, Iu=Iu, Iv=Iv, eps=eps),
+            sw_accumulate_adjoint=partial(sw.accumulate_adjoint, vol, *args, ibar, Iu=Iu,
+                                          Iv=Iv, eps=eps),
+            sw_warp=partial(sw.warp, k1, *warp_args),
+            sw_warp_grads=partial(sw.warp_with_grads, k1, *warp_args),
+            grid_sample=grid_sample,
+        ))
+        t = {
+            "sw_accumulate": (
+                time_ms(lambda: sw.accumulate(vol, *args, Iu=Iu, Iv=Iv, eps=eps), reps),
+                time_ms(lambda: sw._accumulate(vol, *args, Iu=Iu, Iv=Iv, eps=eps), 3),
+                None,
+            ),
+            "sw_accumulate_adjoint": (
+                time_ms(lambda: sw.accumulate_adjoint(vol, *args, ibar, Iu=Iu, Iv=Iv, eps=eps), reps),
+                time_ms(lambda: sw._accumulate_adjoint(vol, *args, ibar, Iu=Iu, Iv=Iv, eps=eps), 3),
+                None,
+            ),
+        }
+        lib = time_ms(grid_sample, reps)
+        t["sw_warp"] = (
+            time_ms(lambda: sw.warp(k1, x["uc"], x["vc"], x["ws"]), reps),
+            time_ms(lambda: sw._warp_plain(k1, x["uc"], x["vc"], x["ws"]), reps),
+            lib,
+        )
+        t["sw_warp_grads"] = (
+            time_ms(lambda: sw.warp_with_grads(k1, x["uc"], x["vc"], x["ws"]), reps),
+            time_ms(lambda: sw._warp_with_grads_plain(k1, x["uc"], x["vc"], x["ws"]), reps),
+            lib,
+        )
+        # bounds from this run's inputs
+        bounds = {name: sw_bounds(name, (M, Wd, L), x, B, R, Iu, Iv) for name in t}
+        for name, (ms, plain_ms, lib_ms) in t.items():
+            nbytes, nops = bounds[name]
+            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, nops / F32_FLOPS * 1e3
+            rec = dict(
+                name=name, route="cuda", source=SW_SOURCE, replaces=REPLACES[name],
+                launches=0, max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
+                bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
+                library_ms=lib_ms, shape=f"B={B} grid={Iu}x{Iv} det={det[0]}x{det[1]} eps={eps}",
+                B=B, det=det[0],
             )
-            t["sw_warp_grads"] = (
-                time_ms(lambda: sw.warp_with_grads(k1, x["uc"], x["vc"], x["ws"]), reps),
-                time_ms(lambda: sw._warp_with_grads_plain(k1, x["uc"], x["vc"], x["ws"]), reps),
-                lib,
-            )
-            # bounds from this run's inputs
-            bounds = {name: sw_bounds(name, (M, Wd, L), x, B, R, Iu, Iv) for name in t}
-            errs = {"sw_accumulate": e1, "sw_accumulate_adjoint": e4, "sw_warp": e2,
-                    "sw_warp_grads": e3}
-            for name, (ms, plain_ms, lib_ms) in t.items():
-                nbytes, nops = bounds[name]
-                t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, nops / F32_FLOPS * 1e3
-                rec = dict(
-                    name=name, route="cuda", source=SW_SOURCE, replaces=REPLACES[name],
-                    launches=0, max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
-                    bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
-                    library_ms=lib_ms, shape=f"B={B} grid={Iu}x{Iv} det={det[0]}x{det[1]} eps={eps}",
-                    B=B, det=det[0],
-                )
-                log(f"  time {name} [{rec['shape']}]: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                    f"library {lib_ms if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
-                    f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}: {nbytes / 1e6:.1f} MB, "
-                    f"{nops / 1e9:.3f} GFLOP)")
-                records.setdefault(name, []).append(rec)
+            log(f"  time {name} [{rec['shape']}]: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                f"library {lib_ms if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
+                f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}: {nbytes / 1e6:.1f} MB, "
+                f"{nops / 1e9:.3f} GFLOP)")
+            records.setdefault(name, []).append(rec)
     _cuda.reset_launches()
     return records, calls
 
@@ -1468,7 +1505,7 @@ CNN_FP32_RTOL = 1e-4
 
 def synthetic_checkpoint(path, gt_pose, xray, crop=0, config=MODEL_CONFIG, seed=0,
                          rot_off_deg=(0.4, -0.3, 0.3), xyz_off_mm=(1.5, -2.0, 1.0),
-                         head_step=(1e-3, 1.5), device="cuda"):
+                         head_step=(1e-3, 1.5), device="cuda", linearize=False):
     """Write a checkpoint (the JAX layout, no trained weights) of a
     PoseRegressor whose prediction on ``xray`` lies a few mm off ``gt_pose``.
     The backbone takes flax's initialization from a seeded torch.Generator;
@@ -1476,7 +1513,12 @@ def synthetic_checkpoint(path, gt_pose, xray, crop=0, config=MODEL_CONFIG, seed=
     and ``xyz_off_mm``; the head kernels are random and scaled so that on
     this X-ray's features they add a step of norm ``head_step[0]`` to the
     rotation parameters and of ``head_step[1]`` mm to the translation.
-    -> (model on ``device``, its input: the preprocessed X-ray)."""
+    ``xray`` may be a list of N X-rays with N poses in ``gt_pose``: each head
+    kernel then also gets the least-norm term that is zero on the first
+    X-ray's features and moves the prediction on the i-th from the first
+    one's target to its own. ``linearize`` reads the X-rays as ``register
+    --linearize`` does. -> (model on ``device``, its input: the first
+    preprocessed X-ray)."""
     import numpy as np
     import torch
     from xvr_tpu_torch.geometry import convert
@@ -1490,8 +1532,12 @@ def synthetic_checkpoint(path, gt_pose, xray, crop=0, config=MODEL_CONFIG, seed=
     model = PoseRegressor(config["model_name"], config["parameterization"], config["convention"],
                           config["norm_layer"], config["unit_conversion_factor"])
     model = init_pose_regressor(model, gen).to(device).eval()
-    gt, sdd, delx, dely, x0, y0, _ = read_xray(xray, crop, False, False)
-    _, x = predict_pose(model, dict(model.state_dict()), config, gt, sdd, delx, dely, x0, y0)
+    inputs = []
+    for path_i in xray if isinstance(xray, (list, tuple)) else [xray]:
+        gt, sdd, delx, dely, x0, y0, _ = read_xray(path_i, crop, False, linearize)
+        inputs.append(predict_pose(model, dict(model.state_dict()), config, gt, sdd, delx, dely,
+                                   x0, y0)[1])
+    x = inputs[0]
     rot, xyz = gt_pose.convert("euler_angles", "ZXY")
     off = torch.tensor(np.deg2rad(rot_off_deg), dtype=torch.float32, device=rot.device)
     target = convert(rot + off, xyz + torch.tensor(xyz_off_mm, device=xyz.device),
@@ -1505,6 +1551,11 @@ def synthetic_checkpoint(path, gt_pose, xray, crop=0, config=MODEL_CONFIG, seed=
             w = torch.randn(head.weight.shape, generator=gen).to(device)
             head.weight.copy_(w * (step / float(torch.linalg.norm(w @ feats))))
             head.bias.copy_(bias.to(device))
+        if len(inputs) > 1:
+            F = torch.stack([model.backbone(x_i)[0] for x_i in inputs]).double().cpu()
+            for head, t in ((model.rot_head, t_rot), (model.xyz_head, t_xyz / ucf)):
+                D = (t - t[0]).double().cpu().T  # (d, N); its first column is 0
+                head.weight.add_((D @ torch.linalg.pinv(F.T)).float().to(device))
     save_checkpoint(path, to_flax_params(model), {}, 0, 0, config)
     return model, x
 
@@ -1566,18 +1617,20 @@ class saved_registrars:
         RegistrarBase._save_result = self.orig
 
 
-def cli_run(name, argv, kernels, renderer=None):
+def cli_run(name, argv, kernels, renderer=None, bundles=1):
     """Run ``python -m xvr_tpu_torch.cli`` in process with the launch counts
-    of this run alone; checks ``kernels`` launched and no other, and the
-    registrar's renderer. -> (registrar, launches, wall s)."""
+    of this run alone; checks ``kernels`` launched and no other, that one
+    registrar wrote ``bundles`` result bundles, and its renderer.
+    -> (registrar, launches, wall s)."""
     from xvr_tpu_torch.cli import main
 
     with saved_registrars() as saved:
         t0 = time.perf_counter()
         _, launches = counted(kernels, lambda: main(argv))
         wall = time.perf_counter() - t0
-    if len(saved.seen) != 1:
-        raise AssertionError(f"{name}: {len(saved.seen)} bundles written, not 1")
+    if len(saved.seen) != bundles or len(set(map(id, saved.seen))) != 1:
+        raise AssertionError(f"{name}: {len(saved.seen)} bundles written, not {bundles} by one "
+                             f"registrar")
     reg = saved.seen[0]
     stray = [k for k, v in launches.items() if v and k not in kernels]
     log(f"entry: {name}: renderer {reg.projector.renderer}, wall {wall:.2f} s, "
@@ -2460,6 +2513,387 @@ def phase_rest(workdir: Path, proj, sw_proj, pose4, gt_pose, fids, card, dev="cu
     return stats
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the dataset workflows (scripts/torch), on a DeepFluoro subject
+# ---------------------------------------------------------------------------
+
+KEPT_LABELS = (1, 2, 3, 4, 7)  # deepfluoro/register/*.sh's --labels
+# the two X-rays' GT poses (ZXY degrees, mm): the bench pose and a second view
+WORKFLOW_POSES = (((182.0, -4.0, 3.0), (6.0, 740.0, -10.0)),
+                  ((176.5, 2.0, -2.5), (-8.0, 760.0, 6.0)))
+WORKFLOW_SEEDS = 4  # RegistrarBase's restart_seeds: K = 2 X-rays x 4 seeds per render
+IDENTITY_ITK = ("#Insight Transform File V1.0\n#Transform 0\n"
+                "Transform: AffineTransform_double_3_3\n"
+                "Parameters: 1 0 0 0 1 0 0 0 1 0 0 0\nFixedParameters: 0 0 0\n")
+CSV_MTRE_ATOL = 1e-3  # mm: the evaluate CSV's float32 mTRE against the phase's float64 one
+FEMUR_SHARE_MAX = 0.1  # of the bone, in the two boxes that --labels 1,2,3,4,7 leaves out
+
+
+def _load_script(name):
+    """A workflow script of scripts/torch as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(f"torch_{name}", REPO / "scripts" / "torch" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def deepfluoro_mask(hu):
+    """DeepFluoro's seven labels on the bench phantom: 1 soft tissue, 2/3 the
+    rod's halves, 4 the plate, 7 the ball, and 5/6 ("the femurs") the bone in
+    two lateral boxes at the rod's ends. -> (int32 labelmap, each label's
+    share of the bone)."""
+    import numpy as np
+
+    n = hu.shape[0]
+    X, Y, Z = np.meshgrid(*([np.arange(n, dtype=np.float32)] * 3), indexing="ij")
+    bone = hu > 600.0
+    mask = np.where(hu > -500.0, 1, 0).astype(np.int32)
+    mask[bone & (Z < (n - 1) / 2)] = 2
+    mask[bone & (Z >= (n - 1) / 2)] = 3
+    plate = (np.abs(X - 0.35 * n) < 0.04 * n) & (np.abs(Y - 0.55 * n) < 0.12 * n) & (
+        np.abs(Z - 0.35 * n) < 0.12 * n)
+    mask[bone & plate] = 4
+    mask[bone & ((X - 0.62 * n) ** 2 + (Y - 0.45 * n) ** 2 + (Z - 0.6 * n) ** 2 <= (0.1 * n) ** 2)] = 7
+    mask[bone & (X < 0.32 * n) & (Z > 0.55 * n)] = 5
+    mask[bone & (X > 0.69 * n)] = 6
+    shares = {int(k): float((mask[bone] == k).mean()) for k in (2, 3, 4, 5, 6, 7)}
+    return mask, shares
+
+
+def masked_hu(hu):
+    """The CT as ``-m mask --labels 1,2,3,4,7`` reads it: air outside the kept labels."""
+    import numpy as np
+
+    return np.where(np.isin(deepfluoro_mask(hu)[0], KEPT_LABELS), hu, -1000.0).astype(np.float32)
+
+
+def workflow_poses(dev="cuda"):
+    """The K = 2 x WORKFLOW_SEEDS poses of phase 8's renders about the
+    WORKFLOW_POSES, seeded as RegistrarBase.run_batch seeds its first pass
+    (pass index 999) with its default jitter: seed 0 of each X-ray as it is,
+    the others moved by one shared table of +-1 degree and +-4 mm from
+    default_rng(1000 + 999)."""
+    import numpy as np
+    import torch
+    from xvr_tpu_torch.geometry import convert
+
+    S, n = WORKFLOW_SEEDS, len(WORKFLOW_POSES)
+    rot = np.repeat(np.deg2rad([p[0] for p in WORKFLOW_POSES]), S, axis=0)
+    xyz = np.repeat(np.array([p[1] for p in WORKFLOW_POSES], np.float64), S, axis=0)
+    prng = np.random.default_rng(1000 + 999)
+    jit = (np.arange(n * S) % S) != 0
+    rot[jit] += np.tile(np.deg2rad(prng.uniform(-1.0, 1.0, (S - 1, 3))), (n, 1))
+    xyz[jit] += np.tile(prng.uniform(-4.0, 4.0, (S - 1, 3)), (n, 1))
+    return convert(torch.tensor(rot, dtype=torch.float32, device=dev),
+                   torch.tensor(xyz, dtype=torch.float32, device=dev), "euler_angles", "ZXY")
+
+
+def phase_workflow_kernels(hu, aff, dev="cuda"):
+    """K1-K4 against their plain versions (:func:`check_sw_stage`, phase 3's
+    tolerances and bit-for-bit repeats) at phase 8's shapes: the masked
+    density that ``--labels 1,2,3,4,7`` leaves (as phase 8 packs it for K1),
+    the 1336^2 crop projector, B = 8 (:func:`workflow_poses`: both views x 4
+    seeds) at the coarse, middle and fine scales of 24,12,6.
+    -> {kernel: max abs error}."""
+    import torch
+    from xvr_tpu_torch.registrar.base import _parse_scales
+    from xvr_tpu_torch.render import Projector, Volume, _cuda
+
+    vol = Volume(data=torch.as_tensor(masked_hu(hu), device=dev), affine=torch.as_tensor(aff, device=dev))
+    poses = workflow_poses(dev)
+    proj = Projector.from_volume(vol, sdd=1020.0, height=1336, delx=0.194).with_shearwarp(poses)
+    if not proj.renderer.endswith("_fast"):
+        raise AssertionError(f"with_shearwarp declined the workflow poses: {proj.renderer}")
+    packed = proj.prepare_for_shearwarp()
+    errs = {}
+    for stage, scale in zip(("coarse", "mid", "fine"),
+                            _parse_scales("24,12,6", 100, proj.detector.height)):
+        _, _, _, e, _ = check_sw_stage(packed, proj.rescale_detector(scale), poses,
+                                       f"workflow {stage} B={poses.matrix.shape[0]} masked")
+        errs = {k: max(errs.get(k, 0.0), v) for k, v in e.items()}
+    _cuda.reset_launches()
+    log(f"kernels: phase 8's shapes (masked density, both views x {WORKFLOW_SEEDS} seeds) passed, "
+        f"max abs errors {json.dumps(errs)}")
+    return errs
+
+
+def write_deepfluoro_subject(root: Path, name, hu, aff, fids, dev="cuda", det=1436):
+    """The tree scripts/torch/convert_datasets.py writes for one DeepFluoro
+    subject, from the bench CT: data/deepfluoro/<name>/ volume.nii.gz,
+    mask.nii.gz (deepfluoro_mask), fiducials.npy, an identity
+    warp2template.txt, and xrays/00i.{dcm,npz} for the WORKFLOW_POSES, each
+    a ``det``^2 X-ray (sdd 1020, 1436^2 x 0.194 mm) of the whole CT, the
+    femur boxes in view as on real DeepFluoro X-rays, rendered by the port
+    through shear-warp and stored as the intensity 2 exp(-k d) - 1
+    (k = ln 2 / max d) that --linearize maps back to the line integral d,
+    its pose before the mapper; then the finetuned checkpoint
+    models/deepfluoro/finetuned/<name>/0001.ckpt (synthetic, fit to both
+    X-rays as --linearize --crop 100 reads them). -> GT pose matrices
+    (N, 4, 4)."""
+    import numpy as np
+    import torch
+    from xvr_tpu_torch.geometry import convert
+    from xvr_tpu_torch.io import dcmwrite, read, save_nifti
+    from xvr_tpu_torch.render import Projector
+
+    conv = _load_script("convert_datasets")
+    mapper = _load_script("evaluate")._DEEPFLUORO_MAPPER  # its own inverse
+    sub = root / "data" / "deepfluoro" / name
+    (sub / "xrays").mkdir(parents=True)
+    save_nifti(sub / "volume.nii.gz", hu, aff)
+    save_nifti(sub / "mask.nii.gz", deepfluoro_mask(hu)[0].astype(np.float32), aff)
+    np.save(sub / "fiducials.npy", np.asarray(fids, np.float32))
+    (sub / "warp2template.txt").write_text(IDENTITY_ITK)
+    sdd, delx = 1020.0, 0.194 * 1436 / det
+    proj = Projector.from_volume(read(sub / "volume.nii.gz", device=dev), sdd=sdd, height=det,
+                                 delx=delx)
+    rot, xyz = (torch.tensor([p[i] for p in WORKFLOW_POSES], device=dev) for i in (0, 1))
+    poses = convert(rot, xyz, "euler_angles", "ZXY", degrees=True)
+    xrays = []
+    for i in range(len(WORKFLOW_POSES)):
+        pose = poses[i : i + 1]
+        with torch.no_grad():
+            d = proj.with_shearwarp(pose, differentiable=False)(pose)[0, 0].double().cpu().numpy()
+        intensity = 2.0 * np.exp(-np.log(2.0) * d / d.max()) - 1.0
+        xrays.append(sub / "xrays" / f"{i:03d}.dcm")
+        dcmwrite(xrays[-1], np.rint(intensity * 60000).astype(np.uint16), sdd=sdd,
+                 row_spacing=delx, col_spacing=delx)
+        stored = mapper @ pose.matrix.cpu().numpy()  # read_true applies it again
+        conv._save_pose(xrays[-1].with_suffix(".npz"), stored, sdd, delx, delx, 0.0, 0.0, det, det)
+    synthetic_checkpoint(root / "models" / "deepfluoro" / "finetuned" / name / "0001.ckpt",
+                         poses, xrays, crop=100, device=dev, linearize=True)
+    return poses.matrix.cpu().numpy()
+
+
+def shell_commands(text: str) -> list:
+    """The command lines of a shell script: continuations joined, comments
+    and blank lines dropped, whitespace normalized."""
+    lines = (" ".join(line.split()) for line in text.replace("\\\n", " ").splitlines())
+    return [line for line in lines if line and not line.startswith("#")]
+
+
+def shell_defaults(text: str) -> dict:
+    """A shell script's ``VAR=${VAR:-default}`` defaults."""
+    import re
+
+    return dict(re.findall(r"^(\w+)=\$\{\1:-([^}]*)\}$", "\n".join(shell_commands(text)), re.M))
+
+
+def expand(line: str, env) -> list:
+    """A command line with its shell variables set from ``env``, as tokens."""
+    import re
+    import shlex
+
+    return shlex.split(re.sub(r"\$\{?(\w+)\}?", lambda m: env[m.group(1)], line))
+
+
+def evaluator_mtre(pose, gt, fids) -> float:
+    """mTRE (mm) as the evaluator (and its CSV) defines it, in float64: the
+    mean distance between the fiducials carried by ``pose`` and by ``gt``.
+    A rotation error counts with the lever arm of the pose's translation
+    (the source distance), where fiducial_mtre's counts with the fiducials'
+    distance from the origin."""
+    import numpy as np
+
+    P, G = (np.asarray(m, np.float64).reshape(4, 4) for m in (pose, gt))
+    return float(np.linalg.norm(fids @ (P[:3, :3] - G[:3, :3]).T + (P[:3, 3] - G[:3, 3]),
+                                axis=-1).mean())
+
+
+def pose_error(pose, gt) -> dict:
+    """The rotation (degrees) and translation (mm) that take ``gt`` to
+    ``pose``, and the shift of the source (the pose's camera centre, mm)."""
+    import numpy as np
+
+    P, G = (np.asarray(m, np.float64).reshape(4, 4) for m in (pose, gt))
+    dR = P[:3, :3] @ G[:3, :3].T
+    angle = np.degrees(np.arccos(np.clip((np.trace(dR) - 1.0) / 2.0, -1.0, 1.0)))
+    return dict(rot_deg=float(angle), source_mm=float(np.linalg.norm(P[:3, 3] - G[:3, 3])))
+
+
+def objective_at(reg, xray, poses) -> list:
+    """The registrar's similarity at its fine stage (the masked render
+    against the preprocessed X-ray, as the last stage scores it) at each of
+    ``poses`` (4, 4) matrices."""
+    import torch
+    from xvr_tpu_torch.geometry import RigidTransform
+    from xvr_tpu_torch.metrics.ncc import make_imagesim
+    from xvr_tpu_torch.registrar.base import _parse_scales
+
+    gt_img = torch.as_tensor(reg.initialize_pose(str(xray))[0], device=reg.device)
+    scale = _parse_scales(reg.scales, reg.crop, gt_img.shape[-2])[-1]
+    proj = reg.projector.rescale_detector(scale)
+    _, transform = reg._make_stage(proj, 1, 9, 11, 0.0, 0.5)
+    sim = make_imagesim(9, 11, 0.0, 0.5)
+    prepared = proj.prepare_for_shearwarp(proj.density) if proj.renderer.endswith("_fast") else None
+    out = []
+    with torch.no_grad():
+        for m in poses:
+            pose = RigidTransform(torch.as_tensor(m, dtype=torch.float32, device=reg.device).reshape(1, 4, 4))
+            img = proj(pose, density=proj.density, prepared=prepared)
+            out.append(float(sim(transform(gt_img), transform(img))[0]))
+    return out
+
+
+def read_csv(path):
+    lines = Path(path).read_text().strip().splitlines()
+    return [dict(zip(lines[0].split(","), line.split(","))) for line in lines[1:]]
+
+
+def phase_workflows(workdir: Path, hu, aff, fids, card, dev="cuda", kernels=SW_KERNELS, det=1436):
+    """The published DeepFluoro runs of scripts/torch, in process, on one
+    subject (write_deepfluoro_subject; two X-rays of the whole CT, the only
+    cut): the xvr-torch line of deepfluoro/register/finetuned.sh (1436^2
+    cropped by 100, --linearize, -m mask --labels 1,2,3,4,7, scales 24,12,6
+    x 500) with the launch counts of its run, its final mTRE held < 1 mm,
+    and the registrar's objective at the GT and the final poses; the loop of
+    deepfluoro/evaluate/finetuned.sh (register model --warp --init_only,
+    then its evaluate line); evaluate.py on the register run's tree;
+    validate_convention.py with --crop 100. ``kernels=()`` skips the launch
+    checks (a rehearsal on the CPU). Times are tagged with ``card``.
+    -> (launches of the register run, stats)."""
+    import contextlib
+    import io
+    import re
+
+    import numpy as np
+    import torch
+    from xvr_tpu_torch.render.volume import transform_hu_to_density
+
+    root = workdir / "workflows"
+    name = "subject01"
+    t0 = time.perf_counter()
+    shares = deepfluoro_mask(hu)[1]
+    gt = write_deepfluoro_subject(root, name, hu, aff, fids, dev, det)
+    n_x = len(WORKFLOW_POSES)
+    femur = shares[5] + shares[6]
+    log(f"workflows: DeepFluoro {name} of the bench CT, {n_x} X-rays of {det}^2 of the whole CT, "
+        f"labels' bone shares {json.dumps(shares)} (femurs 5+6: {femur:.4f} < {FEMUR_SHARE_MAX}), "
+        f"written in {time.perf_counter() - t0:.1f} s")
+    if not (0.0 < shares[5] and 0.0 < shares[6] and femur < FEMUR_SHARE_MAX):
+        raise AssertionError(f"the femur boxes hold {femur:.4f} of the bone, not (0, {FEMUR_SHARE_MAX})")
+    fids = np.asarray(fids, np.float32).astype(np.float64)  # as fiducials.npy holds them
+    device = [] if dev == "cuda" else ["--device", dev]
+    ev, vc = _load_script("evaluate"), _load_script("validate_convention")
+    walls = {}
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        # 1. register/finetuned.sh's xvr-torch line, its flags as published
+        text = (REPO / "scripts" / "torch" / "deepfluoro" / "register" / "finetuned.sh").read_text()
+        (line,) = [x for x in shell_commands(text) if x.startswith("xvr-torch ")]
+        argv = expand(line, {**shell_defaults(text), "SUBJECT": name})[1:]
+        reg, launches, walls["register"] = cli_run(
+            f"workflows: register/finetuned.sh SUBJECT={name}", argv + device, kernels,
+            bundles=n_x, renderer="trilinear_fast" if kernels else None)
+        # --labels: the density the shear-warp path packs is the masked one
+        masked = transform_hu_to_density(torch.as_tensor(masked_hu(hu), device=dev))
+        packed = reg.projector.prepare_for_shearwarp()
+        masked_ok = bool(torch.equal(reg.projector.density, masked)
+                         and torch.equal(packed, reg.projector.prepare_for_shearwarp(masked))
+                         and not torch.equal(packed, reg.projector.prepare_for_shearwarp(
+                             transform_hu_to_density(torch.as_tensor(hu, device=dev)))))
+        out = Path(argv[argv.index("-o") + 1])
+        bundles = [np.load(out / f"{i:03d}" / "parameters.npz") for i in range(n_x)]
+        mtre, emtre = ({k: [f(b[k], g, fids) for b, g in zip(bundles, gt)]
+                        for k in ("init_pose", "final_pose")} for f in (fiducial_mtre, evaluator_mtre))
+        errors = [pose_error(b["final_pose"], g) for b, g in zip(bundles, gt)]
+        # the objective the registration climbs, at GT and at its end
+        xrays = sorted(Path(argv[2]).glob("*.dcm"))  # register model <xrays> ...
+        objective = [dict(zip(("gt", "final"), objective_at(reg, xray, (g, b["final_pose"]))))
+                     for xray, b, g in zip(xrays, bundles, gt)]
+        log(f"workflows: mTRE {[round(m, 4) for m in mtre['init_pose']]} -> "
+            f"{[round(m, 4) for m in mtre['final_pose']]} mm (phase 5's: the fiducials through "
+            f"each pose's inverse); the evaluator's (the fiducials through each pose) "
+            f"{[round(m, 4) for m in emtre['init_pose']]} -> "
+            f"{[round(m, 4) for m in emtre['final_pose']]} mm; final pose off GT by "
+            f"{json.dumps(errors)}; the registrar's fine-stage objective at GT and final "
+            f"{json.dumps(objective)}")
+        log(f"workflows: the density packed for K1 is the masked one: {masked_ok}")
+
+        # 2. evaluate/finetuned.sh: register model --warp --init_only, then its evaluate line
+        text = (REPO / "scripts" / "torch" / "deepfluoro" / "evaluate" / "finetuned.sh").read_text()
+        env = shell_defaults(text)
+        (sweep,) = [x for x in shell_commands(text) if x.startswith("xvr-torch ")]
+        (score,) = [x for x in shell_commands(text) if x.startswith("python scripts/torch/evaluate.py")]
+        walls["init_only"] = []
+        for subj in sorted(Path("data/deepfluoro").glob("subject*/")):
+            for ckpt in sorted(Path(env["CKPTDIR"], subj.name).glob("*.ckpt")):
+                env.update(SUBJECT=subj.name, CKPTPATH=str(ckpt), CKPT_IDX=ckpt.stem)
+                _, _, wall = cli_run(f"workflows: evaluate/finetuned.sh {ckpt}",
+                                     expand(sweep, env)[1:] + device, (), bundles=n_x)
+                walls["init_only"].append(wall)
+        sweep_argv = expand(sweep, env)
+        sweep_root = Path(sweep_argv[sweep_argv.index("-o") + 1]).parents[1]
+        same_init = all(np.array_equal(np.load(sweep_root / name / "0001" / f"{i:03d}" /
+                                               "parameters.npz")["init_pose"], b["init_pose"])
+                        for i, b in enumerate(bundles))
+        tokens = expand(score, env)
+        t1 = time.perf_counter()
+        if tokens[:2] != ["python", "scripts/torch/evaluate.py"] or ev.main(tokens[2:] + device):
+            raise AssertionError(f"workflows: {score} failed")
+        walls["evaluate_init_only"] = time.perf_counter() - t1
+        sweep_rows = read_csv(tokens[tokens.index("-s") + 1])
+
+        # 3. the register run's tree, scored
+        register_root = out.parent
+        csv = register_root.parent / f"{register_root.name}.csv"
+        t1 = time.perf_counter()
+        if ev.main(["-f", str(register_root), "-s", str(csv), "-d", "data", *device]):
+            raise AssertionError("workflows: evaluate.py on the register results failed")
+        walls["evaluate_register"] = time.perf_counter() - t1
+        rows = {(r["subject"], r["xray"]): r for r in read_csv(csv)}
+
+        # 4. validate_convention.py
+        t1 = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = vc.main(["data", "deepfluoro", "-s", name, "--crop", "100", *device])
+        walls["validate"] = time.perf_counter() - t1
+        mncc = [float(v) for v in re.findall(r"mNCC=([-+0-9.]+)", buf.getvalue())]
+    finally:
+        os.chdir(cwd)
+    log("\n".join(f"  validate: {line}" for line in buf.getvalue().strip().splitlines()))
+
+    csv_err = [abs(float(rows[(name, f"{i:03d}")][col]) - m)
+               for col, key in (("mtre_init", "init_pose"), ("mtre", "final_pose"))
+               for i, m in enumerate(emtre[key])] if len(rows) == n_x else [float("inf")]
+    expect = {(name, "0001", f"{i:03d}") for i in range(n_x)}
+    sweep_ok = (len(sweep_rows) == len(expect)
+                and {(r["subject"], r["epoch"], r["xray"]) for r in sweep_rows} == expect
+                and all(r["dataset"] == "deepfluoro" and r["mtre_init"] and not r.get("mtre")
+                        for r in sweep_rows))
+    stats = dict(card=card, cut="two X-rays of one subject", bone_shares=shares, walls_s=walls,
+                 mtre_init_mm=mtre["init_pose"], mtre_final_mm=mtre["final_pose"],
+                 evaluator_mtre_init_mm=emtre["init_pose"], evaluator_mtre_final_mm=emtre["final_pose"],
+                 final_error=errors, objective=objective,
+                 launches={k: launches[k] for k in SW_KERNELS},
+                 csv_rows=dict(register=len(rows), init_only=len(sweep_rows)),
+                 csv_mtre_err_mm=max(csv_err), validate_mncc=mncc, validate_rc=rc,
+                 masked_density_packed=masked_ok, warp_identity_init_bit_identical=same_init)
+    log(f"workflows: register {walls['register']:.2f} s, --init_only "
+        f"{[round(w, 2) for w in walls['init_only']]} s, evaluate {walls['evaluate_init_only']:.2f} / "
+        f"{walls['evaluate_register']:.2f} s, validate {walls['validate']:.2f} s; CSV rows {len(rows)} "
+        f"(register) and {len(sweep_rows)} (init-only, {len(expect)} expected); CSV mtre and "
+        f"mtre_init vs the registrar's poses' max |diff| {max(csv_err):.2e} mm (<= {CSV_MTRE_ATOL}); "
+        f"--warp identity leaves the init pose bit for bit: {same_init}; validate exit {rc}, "
+        f"mNCC {mncc} [{card}]")
+    print("workflows " + json.dumps(stats), flush=True)
+    print(card, flush=True)
+    failed = [what for what, bad in (
+        ("a final mTRE >= 1 mm", not max(mtre["final_pose"]) < 1.0),
+        (f"the CSV's mTRE off the registrar's by > {CSV_MTRE_ATOL} mm", not max(csv_err) <= CSV_MTRE_ATOL),
+        ("the init-only CSV lacks a row for an X-ray x checkpoint", not sweep_ok),
+        ("validate_convention exited non-zero", rc != 0 or len(mncc) != n_x),
+        ("the registration packed the unmasked density", not masked_ok),
+        ("--warp identity moved the init pose", not same_init)) if bad]
+    if failed:
+        raise AssertionError(f"workflows: {failed}")
+    return launches, stats
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [leaf for k in sorted(tree) for leaf in _leaves(tree[k])]
@@ -2510,6 +2944,7 @@ def main() -> int:
     records.update(slab_records)
     trainer = phase_trainer_shape(vol)
     trainer_sw = phase_trainer_shearwarp(hu, aff)
+    workflow_errs = phase_workflow_kernels(hu, aff)
     # device time of every kernel at each shape; grid_sample, K2 and K3 also
     # each profiled alone, so that K2/K3 and their library call compare alike
     fmt = lambda ms: "not measured" if ms is None else f"{ms:.4f} ms"  # noqa: E731
@@ -2544,6 +2979,8 @@ def main() -> int:
         train_stats = phase_training(workdir, hu, aff, smi)
         # 7. the rest: the device mesh, the lean scan, animate and dcm2nii
         rest_stats = phase_rest(workdir, proj, sw_proj, pose4, gt_pose, fids, smi)
+        # 8. the dataset workflows: scripts/torch's DeepFluoro register and evaluate runs
+        wf_launches, wf_stats = phase_workflows(workdir, hu, aff, fids, smi)
     render_launches, render_stats = label_and_siddon_renders(vol, gt_pose, gt_proj, gt_img, pose4)
     launches = {**{k: sw_launches[k] for k in sw_launches if k.startswith("sw_")},
                 "slab_forward": slab_launches["slab_forward"],
@@ -2560,9 +2997,12 @@ def main() -> int:
     for name, recs in records.items():
         rec = dict(recs[-1])
         rec["launches"] = launches[name]
+        rec["launches_workflows"] = wf_launches[name]
         if name in SW_KERNELS:
             rec["launches_register_model"] = entry_launches[name]
-        rec["max_abs_err"] = max(r["max_abs_err"] for r in recs)
+        rec["max_abs_err"] = max([r["max_abs_err"] for r in recs] + [workflow_errs.get(name, 0.0)])
+        if name in workflow_errs:
+            rec["workflow_max_abs_err"] = workflow_errs[name]
         rec["edge_max_abs_err"] = edge_errs.get(name)
         rec["gap_ms_per_registration"] = gaps[name][0]
         rec["coarse"] = {k: recs[0].get(k) for k in ("shape", "ms", "profiler_ms", "bound_ms",

@@ -292,3 +292,33 @@ def test_port_optimizer_state_restores_in_jax(ct_file, tmp_path, two_torch_threa
     _assert_same_tree(to_flax_params(tr.model), jax.device_get(params))
     _assert_same_tree(tr.tx.state_dict(tr.opt_state, lambda d: to_flax_params(tr.model, d)),
                       flax.serialization.to_state_dict(jax.device_get(state)))
+
+
+def test_restore_into_matches_jax():
+    """restore_into rebuilds a template's structure (dicts, lists, tuples,
+    namedtuples; extra state keys dropped) from a raw state dict, leaf for
+    leaf as flax's from_state_dict does on the same NumPy arrays, and refuses
+    a state that lacks a template key or has the wrong length."""
+    from xvr_tpu.train.checkpoint import restore_into as j_restore_into
+    from xvr_tpu_torch.train import restore_into
+
+    rng = np.random.default_rng(12)
+    arr = lambda *s: rng.normal(size=s).astype(np.float32)  # noqa: E731
+    template = {"params": {"conv": {"kernel": arr(3, 3), "bias": arr(3)}, "dense": [arr(2), arr(4)]},
+                "state": (optax.ScaleByAdamState(count=np.zeros((), np.int32), mu=arr(2), nu=arr(2)),
+                          optax.EmptyState()),
+                "step": 0}
+    state = flax.serialization.to_state_dict(jax.tree_util.tree_map(lambda x: x * 0 + 1, template))
+    state["params"]["extra"] = arr(5)  # keys the template lacks are dropped
+    state["step"] = 7
+    got, ref = restore_into(template, state), j_restore_into(template, state)
+    assert jax.tree_util.tree_structure(got) == jax.tree_util.tree_structure(ref)
+    for g, r in zip(jax.tree_util.tree_leaves(got), jax.tree_util.tree_leaves(ref)):
+        assert np.array_equal(np.asarray(g), np.asarray(r))
+    assert got["step"] == 7 and "extra" not in got["params"]
+    assert isinstance(got["state"][0], optax.ScaleByAdamState)
+    for bad in ({"params": state["params"]}, {**state, "params": {**state["params"], "dense": {"0": 1}}}):
+        with pytest.raises(ValueError):
+            restore_into(template, bad)
+        with pytest.raises(ValueError):
+            j_restore_into(template, bad)

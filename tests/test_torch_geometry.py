@@ -130,3 +130,18 @@ def test_rigid_transform_is_differentiable():
     pose.matrix.sum().backward()
     assert torch.isfinite(rot.grad).all() and torch.isfinite(xyz.grad).all()
     assert JRigidTransform  # the JAX twin is importable beside it
+
+
+def test_vee_and_axis_angle_to_quaternion_match_jax():
+    """vee inverts hat on both sides; axis_angle_to_quaternion takes both
+    branches (theta^2 below 1e-12 and above) and agrees with JAX to RTOL."""
+    rng = np.random.default_rng(10)
+    w = rng.normal(0.0, 0.8, (8, 3)).astype(np.float32)
+    w[0] = 0.0
+    w[1] = 3e-7  # theta^2 ~ 3e-13: the series branch
+    W = rng.normal(0.0, 1.0, (2, 4, 3, 3)).astype(np.float32)
+    close(so3.vee(torch.as_tensor(W)), jso3.vee(jnp.asarray(W)))
+    close(so3.vee(so3.hat(torch.as_tensor(w))), w)
+    q = so3.axis_angle_to_quaternion(torch.as_tensor(w))
+    close(q, jso3.axis_angle_to_quaternion(jnp.asarray(w)))
+    close(so3.quaternion_to_matrix(q), so3.axis_angle_to_matrix(torch.as_tensor(w)))

@@ -685,3 +685,109 @@ def test_mesh_training_step_on_the_card_matches_unsharded(cuda, tmp_path, monkey
     assert {k: v for k, v in _cuda.LAUNCHES.items() if v} == {
         "sw_accumulate": 2 * 2 * C, "sw_warp": 2 * 2, "sw_warp_grads": 2,
         "sw_accumulate_adjoint": 2 * C}
+
+
+# ---------------------------------------------------------------------------
+# the dataset workflows
+# ---------------------------------------------------------------------------
+
+TRAJECTORY_ATOL = 1e-3  # tests/test_torch_registrar.py's
+# rows held to it: the pose parameters of the init and the first two steps,
+# the NCC of the first ten. Adam amplifies float32 round-off, so the card's
+# rows 3-5 stand 1.0e-3, 1.5e-3 and 1.3e-2 mm from the CPU's (the CPU with
+# bf16=True stands as far from the CPU with bf16=False), while the NCCs of
+# rows 0-9 stay within 1.4e-4 (H100, the calls of this test's scene)
+POSE_ROWS, NCC_ROWS = 3, 10
+# the first iteration's pose gradient (rotation and translation parameters,
+# each relative to its largest component). Through K1-K4 against the plain
+# versions on the same card, whose inputs are then the same bits: the
+# kernels' arithmetic alone (H100: 2.3e-5 and 1.0e-6). Card against CPU:
+# the inputs differ in their last bits, and on this 15^2 stage the rotation
+# gradient jumps where a sample crosses a warp cell (H100 against CPU:
+# 4.5e-3 and 4.7e-5)
+GRAD_RTOL_SAME_INPUTS = 1e-4
+GRAD_RTOL_CPU = {"rotation": 5e-2, "translation": 1e-3}
+
+
+def test_masked_linearized_register_model_matches_the_cpu(cuda, tmp_path, monkeypatch):
+    """chip_smoke.py's DeepFluoro subject at 64^3 and 356^2, its air filled
+    with graded soft tissue as tests/test_torch_registrar.py's phantom is (on
+    a flat background the local NCC and its gradient are float32 rounding
+    noise, which differs between any two implementations): ``register
+    model`` with the mask, ``--labels 1,2,3,4,7`` and
+    ``--linearize`` (one start, no re-anneal) through K1-K4 on the card,
+    the same call on the card with the kernels' wrappers swapped for the
+    plain versions, and the same call with ``--device cpu`` (the plain
+    versions with the kernels' arithmetic, ``bf16=False``; their default
+    JAX bf16 recipe moves the gradient by 0.3-0.6%). The first iteration's
+    pose gradient agrees with the plain run on the card within
+    GRAD_RTOL_SAME_INPUTS and with the CPU's within GRAD_RTOL_CPU; the first
+    stage's trajectory agrees with the CPU's within TRAJECTORY_ATOL, pose
+    parameters over POSE_ROWS and the NCC over NCC_ROWS. cuDNN's TF32 is off
+    on the card, so the CNN's initial poses agree to float32 sums."""
+    import functools
+
+    from xvr_tpu_torch.cli import main
+    from xvr_tpu_torch.render import _cuda
+    from xvr_tpu_torch.render import shearwarp as sw
+
+    smoke = _smoke()
+    monkeypatch.setenv("XVR_FORCE_SHEARWARP", "1")  # the CPU run takes shear-warp too
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    for name in ("_accumulate", "_accumulate_adjoint", "_warp_plain", "_warp_with_grads_plain"):
+        monkeypatch.setattr(sw, name, functools.partial(getattr(sw, name), bf16=False))
+    hu, aff, fids = smoke.build_phantom(64)
+    X, _, Z = np.meshgrid(*([np.arange(64, dtype=np.float32)] * 3), indexing="ij")
+    hu = np.where(hu < -500.0, 20.0 + 150.0 * X / 64 + 60.0 * Z / 64, hu).astype(np.float32)
+    smoke.write_deepfluoro_subject(tmp_path, "subject01", hu, aff, fids, dev="cuda", det=356)
+    sub = tmp_path / "data" / "deepfluoro" / "subject01"
+    ckpt = tmp_path / "models" / "deepfluoro" / "finetuned" / "subject01" / "0001.ckpt"
+    # the registrar's first torch.autograd.grad, d NCC / d (rotation,
+    # translation) at the init: the first call that no other call encloses
+    # (the shear-warp backward calls it within, for its ray geometry)
+    grads, autograd_grad, depth = {}, torch.autograd.grad, [0]
+
+    def first_grad(run):
+        def spy(outputs, inputs, *a, **k):
+            depth[0] += 1
+            try:
+                g = autograd_grad(outputs, inputs, *a, **k)
+            finally:
+                depth[0] -= 1
+            if depth[0] == 0:
+                grads.setdefault(run, [t.detach().double().cpu() for t in g])
+            return g
+        return spy
+
+    plain = {"accumulate": sw._accumulate, "accumulate_adjoint": sw._accumulate_adjoint,
+             "warp": sw._warp_plain, "warp_with_grads": sw._warp_with_grads_plain}
+    out = {}
+    for run, dev in (("cuda", "cuda"), ("cuda_plain", "cuda"), ("cpu", "cpu")):
+        out[run] = tmp_path / f"out_{run}"
+        _cuda.reset_launches()
+        with monkeypatch.context() as m:
+            m.setattr(torch.autograd, "grad", first_grad(run))
+            for name, fn in plain.items() if run == "cuda_plain" else ():
+                m.setattr(sw, name, fn)
+            assert main(["register", "model", str(sub / "xrays" / "000.dcm"), "-v",
+                         str(sub / "volume.nii.gz"), "-m", str(sub / "mask.nii.gz"), "-c",
+                         str(ckpt), "-o", str(out[run]), "--crop", "100", "--linearize",
+                         "--labels", "1,2,3,4,7", "--scales", "24,12", "--n_itrs", "20,10",
+                         "--restart_seeds", "1", "--max_restarts", "0", "--verbose", "0",
+                         "--device", dev]) == 0
+        launched = {k for k, v in _cuda.LAUNCHES.items() if v}
+        assert launched == (set(smoke.SW_KERNELS) if run == "cuda" else set())
+    assert [tuple(t.shape) for t in grads["cpu"]] == [(1, 3), (1, 3)]
+    for i, what in enumerate(("rotation", "translation")):
+        got = grads["cuda"][i]
+        for run, rtol in (("cuda_plain", GRAD_RTOL_SAME_INPUTS), ("cpu", GRAD_RTOL_CPU[what])):
+            ref = grads[run][i]
+            print(f"first-iteration gradient, {what}: card {got.tolist()}, {run} {ref.tolist()}, "
+                  f"max |diff| / max |{run}| {float((got - ref).abs().max() / ref.abs().max()):.3e}")
+            torch.testing.assert_close(got, ref, rtol=rtol, atol=rtol * float(ref.abs().max()),
+                                       msg=f"{what} against {run}")
+    got, ref = (np.load(out[d] / "000" / "parameters.npz") for d in ("cuda", "cpu"))
+    np.testing.assert_allclose(got["init_pose"], ref["init_pose"], rtol=0, atol=TRAJECTORY_ATOL)
+    for key, rows in (("trajectory_params", POSE_ROWS), ("trajectory_ncc", NCC_ROWS)):
+        np.testing.assert_allclose(got[key][:rows], ref[key][:rows], rtol=0, atol=TRAJECTORY_ATOL,
+                                   err_msg=key)

@@ -1,6 +1,7 @@
 """The port stands alone: no module of ``xvr_tpu_torch``, not
-``chip_smoke.py`` and not the port's chip scripts (``scripts/chip_*.py``)
-imports JAX, the JAX package, ``click`` or ``msgpack``, and importing the
+``chip_smoke.py``, not the port's chip scripts (``scripts/chip_*.py``) and
+not its dataset workflows (``scripts/torch/*.py``) imports JAX, the JAX
+package, ``click`` or ``msgpack``, and importing the
 port leaves them unloaded. At module level they import only the standard
 library and what the card's machine has: numpy, scipy, torch, einops,
 triton and the port itself (an import in a function, or in a ``try`` that
@@ -15,7 +16,8 @@ import pytest
 
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "xvr_tpu_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py", *sorted((REPO / "scripts").glob("chip_*.py"))]
+    REPO / "chip_smoke.py", *sorted((REPO / "scripts").glob("chip_*.py")),
+    *sorted((REPO / "scripts" / "torch").glob("*.py"))]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "xvr_tpu", "click", "msgpack")
 ALLOWED_AT_MODULE_LEVEL = set(sys.stdlib_module_names) | {
     "numpy", "scipy", "torch", "einops", "triton", "xvr_tpu_torch"}
@@ -101,3 +103,16 @@ def test_import_leaves_jax_unloaded():
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
                          timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+@pytest.mark.parametrize("script", ["evaluate", "convert_datasets", "validate_convention"])
+def test_workflow_scripts_run_without_jax_or_click(script, tmp_path):
+    """``python scripts/torch/<script>.py --help`` from another directory,
+    with jax, flax, optax, xvr_tpu, click and msgpack made unimportable."""
+    for name in ("jax", "flax", "optax", "xvr_tpu", "click", "msgpack"):
+        (tmp_path / name).mkdir()
+        (tmp_path / name / "__init__.py").write_text(f"raise ImportError('no {name} here')\n")
+    res = subprocess.run([sys.executable, str(REPO / "scripts" / "torch" / f"{script}.py"), "--help"],
+                         cwd=tmp_path, capture_output=True, text=True, timeout=120,
+                         env={"PYTHONPATH": str(tmp_path), "PATH": "/usr/bin:/bin"})
+    assert res.returncode == 0 and "usage:" in res.stdout, res.stderr

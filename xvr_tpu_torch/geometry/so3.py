@@ -158,6 +158,11 @@ def hat(w: torch.Tensor) -> torch.Tensor:
     return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
 
 
+def vee(W: torch.Tensor) -> torch.Tensor:
+    """Skew-symmetric (..., 3, 3) -> (..., 3)."""
+    return torch.stack([W[..., 2, 1], W[..., 0, 2], W[..., 1, 0]], dim=-1)
+
+
 def _eye_like(W: torch.Tensor) -> torch.Tensor:
     return torch.eye(3, dtype=W.dtype, device=W.device).expand(W.shape)
 
@@ -188,6 +193,17 @@ def quaternion_to_axis_angle(q: torch.Tensor) -> torch.Tensor:
 def matrix_to_axis_angle(R: torch.Tensor) -> torch.Tensor:
     """SO(3) log map (..., 3, 3) -> (..., 3). Safe near theta = 0 and pi."""
     return quaternion_to_axis_angle(matrix_to_quaternion(R))
+
+
+def axis_angle_to_quaternion(w: torch.Tensor) -> torch.Tensor:
+    """(..., 3) -> real-first unit quaternion (..., 4), with a series branch
+    near theta = 0."""
+    theta2 = torch.sum(w * w, dim=-1, keepdim=True)
+    small = theta2 < 1e-12
+    theta = torch.sqrt(torch.where(small, torch.ones_like(theta2), theta2))
+    half = 0.5 * torch.where(small, torch.zeros_like(theta), theta)
+    sinc = torch.where(small, 0.5 - theta2 / 48.0, torch.sin(half) / theta)
+    return torch.cat([torch.cos(half), sinc * w], dim=-1)
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
 from .augmentations import apply_augmentations, draw_augmentations, xray_augmentations
-from .checkpoint import latest_checkpoint, load_checkpoint, save_checkpoint
+from .checkpoint import latest_checkpoint, load_checkpoint, restore_into, save_checkpoint
 from .loss import pose_regression_loss
 from .optim import AGCAdamMultiSteps
 from .sampler import get_random_pose
@@ -17,6 +17,7 @@ __all__ = [
     "load_checkpoint",
     "pad_volumes",
     "pose_regression_loss",
+    "restore_into",
     "save_checkpoint",
     "warmup_cosine_schedule",
     "xray_augmentations",

@@ -60,6 +60,33 @@ def load_checkpoint(path) -> dict:
     return msgpack.restore(Path(path).read_bytes())
 
 
+def restore_into(template, state_dict):
+    """Rebuild a tree with the template's structure from a raw state dict
+    (flax's ``from_state_dict``): a dict takes the template's keys, each of
+    which the state must hold; a list, tuple or namedtuple takes its items
+    from the state's ``"0"``, ``"1"``, ... or field-name keys, as many as the
+    template has; any other template node is a leaf and takes the state's
+    value as it is."""
+    if isinstance(template, dict):
+        missing = {str(k) for k in template} - set(state_dict)
+        if missing:
+            raise ValueError(f"the state dict lacks the template's keys {sorted(missing)}")
+        return {k: restore_into(v, state_dict[str(k)]) for k, v in template.items()}
+    if isinstance(template, tuple) and hasattr(template, "_fields"):
+        if set(state_dict) != set(template._fields):
+            raise ValueError(f"the state dict's fields {sorted(state_dict)} are not the "
+                             f"namedtuple's {list(template._fields)}")
+        return type(template)(**{k: restore_into(getattr(template, k), v)
+                                 for k, v in state_dict.items()})
+    if isinstance(template, (list, tuple)):
+        if len(state_dict) != len(template):
+            raise ValueError(f"the state dict holds {len(state_dict)} items, the template "
+                             f"{len(template)}")
+        items = [restore_into(x, state_dict[str(i)]) for i, x in enumerate(template)]
+        return items if isinstance(template, list) else tuple(items)
+    return state_dict
+
+
 def latest_checkpoint(dirpath) -> Path | None:
     """The newest ``*.ckpt``/``*.pth`` file of a directory (a file is
     returned as is), or None."""
