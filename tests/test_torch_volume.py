@@ -2,8 +2,11 @@
 
 ``load_example_ct`` and ``make_test_volume`` give the JAX package's grids
 and affines exactly; ``utils.profiling`` reads ``XVR_PROFILE_DIR`` and
-writes a torch.profiler trace.
+writes a torch.profiler trace with its spans beside it.
 """
+
+import json
+import os
 
 import numpy as np
 import pytest
@@ -48,7 +51,9 @@ def test_profiling_hooks(tmp_path, monkeypatch):
     monkeypatch.setenv("XVR_PROFILE_DIR", str(tmp_path / "trace"))
     assert profiling.maybe_trace_dir() == str(tmp_path / "trace")
     prof = profiling.start_trace(profiling.maybe_trace_dir())
-    with profiling.annotate("xvr_step"):
+    with profiling.span("xvr_step"):
         torch.ones(8).sum()
     out = profiling.stop_trace(prof)
-    assert out.exists() and "xvr_step" in out.read_text()
+    assert out.exists() and "xvr::xvr_step" in out.read_text()
+    spans = json.loads((out.parent / f"spans_{os.getpid()}.json").read_text())
+    assert spans["spans"]["xvr_step"]["count"] == 1

@@ -233,16 +233,25 @@ def matrix_to_rotation_6d(R: torch.Tensor) -> torch.Tensor:
 _TRIU_I, _TRIU_J = torch.triu_indices(4, 4)
 
 
+def _triu(device):
+    """The upper triangle's indices on ``device``."""
+    if device.type == "cuda":
+        from ..utils.profiling import host_sync  # here: utils imports this package
+
+        host_sync(device, 2)  # their copies from the host wait for the device
+    return _TRIU_I.to(device), _TRIU_J.to(device)
+
+
 def vec10_to_symmetric(v: torch.Tensor) -> torch.Tensor:
     """10-vector (..., 10) -> symmetric matrix (..., 4, 4)."""
     A = torch.zeros(v.shape[:-1] + (4, 4), dtype=v.dtype, device=v.device)
-    A[..., _TRIU_I.to(v.device), _TRIU_J.to(v.device)] = v
+    A[(..., *_triu(v.device))] = v
     eye = torch.eye(4, dtype=v.dtype, device=v.device)
     return A + A.transpose(-1, -2) - A * eye
 
 
 def symmetric_to_vec10(A: torch.Tensor) -> torch.Tensor:
-    return A[..., _TRIU_I.to(A.device), _TRIU_J.to(A.device)]
+    return A[(..., *_triu(A.device))]
 
 
 def rotation_10d_to_matrix(v: torch.Tensor) -> torch.Tensor:

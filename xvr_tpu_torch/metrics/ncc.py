@@ -11,6 +11,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..utils.profiling import host_sync
+
 
 def _moments(x: torch.Tensor):
     mean = x.mean(dim=(1, 2, 3), keepdim=True)
@@ -65,6 +67,8 @@ def _depthwise2d(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
     in full f32 (TF32 off)."""
     C = x.shape[1]
     kh, kw = kernel.shape
+    if kernel.device != x.device:
+        host_sync(x)  # the kernel's copy from the host
     k = kernel.to(dtype=x.dtype, device=x.device).expand(C, 1, kh, kw)
     cudnn = torch.backends.cudnn
     with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,

@@ -35,6 +35,7 @@ from ..geometry import RigidTransform, convert
 from ..metrics.ncc import make_imagesim
 from ..render.load import initialize_drr
 from ..render.projector import Projector
+from ..utils.profiling import count, host_sync, span
 from ..utils.transforms import make_xray_transforms
 
 # Placeholder intrinsics used before a real DICOM is parsed
@@ -80,6 +81,7 @@ def _drift_probes(pose: RigidTransform, rot_deg: float = 15.0, t_mm: float = 30.
 
 
 def _host(x: torch.Tensor) -> np.ndarray:
+    host_sync(x)
     return x.detach().cpu().numpy()
 
 
@@ -233,10 +235,17 @@ class RegistrarBase:
                                                     prepared=prepared)
             return projector.reshape_transform(raw, B)
 
-        def similarity(rot, xyz, gt, density, packed, prepared):
+        def rendered(rot, xyz, density, packed, prepared):
             pose = convert(rot, xyz, parameterization=parameterization, convention=convention)
-            img = render(pose, density, packed, prepared)
-            return imagesim(gt, transform(img))
+            return render(pose, density, packed, prepared)
+
+        def running(i, n_plateaus) -> bool:
+            """The loop's exit check: the host waits for the device's answer."""
+            if i >= n_itr:
+                return False
+            with span("register.exit_check"):
+                host_sync(n_plateaus)
+                return bool((n_plateaus < max_n_plateaus).any())
 
         def stage(rot, xyz, gt, density, lr_rot, lr_xyz):
             # permute/cast the volume once per stage, outside the loop
@@ -263,80 +272,93 @@ class RegistrarBase:
             b1_, b2_ = torch.tensor(b1, dtype=fdt), torch.tensor(b2, dtype=fdt)
 
             i = 0
-            while i < n_itr and bool((n_plateaus < max_n_plateaus).any()):
-                t = torch.tensor(i + 1.0, dtype=fdt)
-                live = n_plateaus < max_n_plateaus
-                r_ = rot.requires_grad_(True)
-                x_ = xyz.requires_grad_(True)
-                sims = similarity(r_, x_, gt, density, packed, prepared)
-                g_r, g_x = torch.autograd.grad(sims.sum(), (r_, x_))
-                rot, xyz = r_.detach(), x_.detach()
-                loss = sims.detach()
-                c1 = float(1 - b1_**t)
-                c2 = float(1 - b2_**t)
+            while running(i, n_plateaus):
+                with span("register.render"):
+                    r_ = rot.requires_grad_(True)
+                    x_ = xyz.requires_grad_(True)
+                    img = rendered(r_, x_, density, packed, prepared)
+                with span("register.similarity"):
+                    sims = imagesim(gt, transform(img))
+                with span("register.backward"):
+                    g_r, g_x = torch.autograd.grad(sims.sum(), (r_, x_))
+                with span("register.update"):
+                    t = torch.tensor(i + 1.0, dtype=fdt)
+                    live = n_plateaus < max_n_plateaus
+                    rot, xyz = r_.detach(), x_.detach()
+                    loss = sims.detach()
+                    c1 = float(1 - b1_**t)
+                    c2 = float(1 - b2_**t)
 
-                def adam(p, m, v, g, lr):
-                    m = b1 * m + (1 - b1) * g
-                    v = b2 * v + (1 - b2) * g * g
-                    return p + lr[:, None] * (m / c1) / (torch.sqrt(v / c2) + eps), m, v
+                    def adam(p, m, v, g, lr):
+                        m = b1 * m + (1 - b1) * g
+                        v = b2 * v + (1 - b2) * g * g
+                        return p + lr[:, None] * (m / c1) / (torch.sqrt(v / c2) + eps), m, v
 
-                def frozen(new, old):
-                    return torch.where(live[:, None], new, old)
+                    def frozen(new, old):
+                        return torch.where(live[:, None], new, old)
 
-                # lr warmup: fresh Adam moments move a full +-lr per
-                # component on the first steps; ramp them in
-                warm = min((i + 1.0) / warmup, 1.0)
-                lr_r = lr_rot * lr_scale * warm
-                lr_x = lr_xyz * lr_scale * warm
-                rot2, m_r2, v_r2 = adam(rot, m_r, v_r, g_r, lr_r)
-                xyz2, m_x2, v_x2 = adam(xyz, m_x, v_x, g_x, lr_x)
-                rot2, m_r2, v_r2 = frozen(rot2, rot), frozen(m_r2, m_r), frozen(v_r2, v_r)
-                xyz2, m_x2, v_x2 = frozen(xyz2, xyz), frozen(m_x2, m_x), frozen(v_x2, v_x)
+                    # lr warmup: fresh Adam moments move a full +-lr per
+                    # component on the first steps; ramp them in
+                    warm = min((i + 1.0) / warmup, 1.0)
+                    lr_r = lr_rot * lr_scale * warm
+                    lr_x = lr_xyz * lr_scale * warm
+                    rot2, m_r2, v_r2 = adam(rot, m_r, v_r, g_r, lr_r)
+                    xyz2, m_x2, v_x2 = adam(xyz, m_x, v_x, g_x, lr_x)
+                    rot2, m_r2, v_r2 = frozen(rot2, rot), frozen(m_r2, m_r), frozen(v_r2, v_r)
+                    xyz2, m_x2, v_x2 = frozen(xyz2, xyz), frozen(m_x2, m_x), frozen(v_x2, v_x)
 
-                # argmax-pose tracking (the loss is of the PRE-step pose)
-                raw_improved = (loss > best_raw) & live
-                best_raw = torch.where(raw_improved, loss, best_raw)
-                b_rot = torch.where(raw_improved[:, None], rot, b_rot)
-                b_xyz = torch.where(raw_improved[:, None], xyz, b_xyz)
+                    # argmax-pose tracking (the loss is of the PRE-step pose)
+                    raw_improved = (loss > best_raw) & live
+                    best_raw = torch.where(raw_improved, loss, best_raw)
+                    b_rot = torch.where(raw_improved[:, None], rot, b_rot)
+                    b_xyz = torch.where(raw_improved[:, None], xyz, b_xyz)
 
-                # scheduler.step(loss); warmup iterations do not tick patience
-                improved = loss > best * (1.0 + threshold)
-                best = torch.where(improved & live, loss, best)
-                ticking = live & (i + 1.0 >= warmup)
-                num_bad = torch.where(
-                    ticking, torch.where(improved, torch.zeros_like(num_bad), num_bad + 1), num_bad
-                )
-                reduce = (num_bad > patience) & live
-                lr_scale = torch.where(reduce, lr_scale * 0.1, lr_scale)
-                num_bad = torch.where(reduce, torch.zeros_like(num_bad), num_bad)
+                    # scheduler.step(loss); warmup iterations do not tick patience
+                    improved = loss > best * (1.0 + threshold)
+                    best = torch.where(improved & live, loss, best)
+                    ticking = live & (i + 1.0 >= warmup)
+                    num_bad = torch.where(
+                        ticking, torch.where(improved, torch.zeros_like(num_bad), num_bad + 1),
+                        num_bad,
+                    )
+                    reduce = (num_bad > patience) & live
+                    lr_scale = torch.where(reduce, lr_scale * 0.1, lr_scale)
+                    num_bad = torch.where(reduce, torch.zeros_like(num_bad), num_bad)
 
-                # plateau counting on observed lr drops (the initial one too)
-                lr_now = lr_rot * lr_scale
-                dropped = (lr_now < current_lr) & live
-                current_lr = torch.where(dropped, lr_now, current_lr)
-                n_plateaus = n_plateaus + dropped.to(n_plateaus.dtype)
-                newly_done = (n_plateaus >= max_n_plateaus) & live
-                done_itr = torch.where(newly_done, torch.full_like(done_itr, i + 1), done_itr)
+                    # plateau counting on observed lr drops (the initial one too)
+                    lr_now = lr_rot * lr_scale
+                    dropped = (lr_now < current_lr) & live
+                    current_lr = torch.where(dropped, lr_now, current_lr)
+                    n_plateaus = n_plateaus + dropped.to(n_plateaus.dtype)
+                    newly_done = (n_plateaus >= max_n_plateaus) & live
+                    done_itr = torch.where(newly_done, torch.full_like(done_itr, i + 1), done_itr)
 
-                # record (pose after the step, similarity before it)
-                pose2 = convert(rot2, xyz2, parameterization=parameterization, convention=convention)
-                e_rot, e_xyz = pose2.convert("euler_angles", "ZXY")
-                traj[i] = torch.cat([e_rot.reshape(K, -1)[:, :3], e_xyz.reshape(K, -1)[:, :3]], 1)
-                nccs[i] = loss
-                lrs[i] = torch.stack([lr_r, lr_x], dim=1)
-                rot, xyz = rot2, xyz2
-                m_r, v_r, m_x, v_x = m_r2, v_r2, m_x2, v_x2
-                i += 1
+                    # record (pose after the step, similarity before it)
+                    pose2 = convert(rot2, xyz2, parameterization=parameterization,
+                                    convention=convention)
+                    e_rot, e_xyz = pose2.convert("euler_angles", "ZXY")
+                    traj[i] = torch.cat([e_rot.reshape(K, -1)[:, :3], e_xyz.reshape(K, -1)[:, :3]],
+                                        1)
+                    nccs[i] = loss
+                    lrs[i] = torch.stack([lr_r, lr_x], dim=1)
+                    rot, xyz = rot2, xyz2
+                    m_r, v_r, m_x, v_x = m_r2, v_r2, m_x2, v_x2
+                    count("register.iterations")
+                    i += 1
 
             # the loop records PRE-step losses, so the final iterate was never
             # scored: score it and keep, per image, the better of (last, argmax)
             with torch.no_grad():
-                last_ncc = similarity(rot, xyz, gt, density, packed, prepared)
-            use_last = last_ncc >= best_raw
-            rot_out = torch.where(use_last[:, None], rot, b_rot)
-            xyz_out = torch.where(use_last[:, None], xyz, b_xyz)
-            final_ncc = torch.maximum(last_ncc, best_raw)
-            n_done = torch.clamp(done_itr, max=i)
+                with span("register.render"):
+                    img = rendered(rot, xyz, density, packed, prepared)
+                with span("register.similarity"):
+                    last_ncc = imagesim(gt, transform(img))
+            with span("register.update"):
+                use_last = last_ncc >= best_raw
+                rot_out = torch.where(use_last[:, None], rot, b_rot)
+                xyz_out = torch.where(use_last[:, None], xyz, b_xyz)
+                final_ncc = torch.maximum(last_ncc, best_raw)
+                n_done = torch.clamp(done_itr, max=i)
             return rot_out, xyz_out, n_done, traj, nccs, lrs, final_ncc
 
         return stage, transform
@@ -374,12 +396,14 @@ class RegistrarBase:
 
             if proj.device.type == "cuda":
                 torch.cuda.synchronize(proj.device)
-            t0 = time.perf_counter()
-            rot, xyz, n_done, traj, stage_nccs, stage_lrs, final_ncc = stage_fn(
-                rot, xyz, gt_stage, proj.density, lr_rot, lr_xyz
-            )
-            n_done, traj, stage_nccs, stage_lrs = map(_host, (n_done, traj, stage_nccs, stage_lrs))
-            t1 = time.perf_counter()
+            with span("register.stage"):
+                t0 = time.perf_counter()
+                rot, xyz, n_done, traj, stage_nccs, stage_lrs, final_ncc = stage_fn(
+                    rot, xyz, gt_stage, proj.density, lr_rot, lr_xyz
+                )
+                n_done, traj, stage_nccs, stage_lrs = map(_host,
+                                                          (n_done, traj, stage_nccs, stage_lrs))
+                t1 = time.perf_counter()
 
             per_itr = (t1 - t0) / max(int(n_done.max()), 1)
             self.stage_log.append(dict(
@@ -451,6 +475,10 @@ class RegistrarBase:
         """Register K X-rays sharing intrinsics in ONE batched optimization.
         Returns a list of K per-image result tuples, each shaped like a
         :meth:`run` result."""
+        with span("register.request", request=True):
+            return self._run_batch(i2ds, mncc_patch_size, gncc_patch_size, sigma, beta)
+
+    def _run_batch(self, i2ds, mncc_patch_size, gncc_patch_size, sigma, beta):
         n_files = len(i2ds)
         if (self.mesh is not None and n_files % self.mesh.size
                 and n_files * self.restart_seeds >= self.mesh.size):
@@ -459,20 +487,22 @@ class RegistrarBase:
             # the mesh is not padded: its renders are split by rows instead
             pad = self.mesh.size - n_files % self.mesh.size
             i2ds = list(i2ds) + [i2ds[-1]] * pad
-        inits = [self.initialize_pose(i2d) for i2d in i2ds]
-        intrs = [tuple(float(v) for v in x[1:6]) for x in inits]  # sdd..y0
-        shapes = [tuple(x[0].shape[-2:]) for x in inits]
-        if len(set(intrs)) != 1 or len(set(shapes)) != 1:
-            raise ValueError(
-                "run_batch requires every X-ray to share intrinsics and shape; got "
-                f"(sdd, delx, dely, x0, y0) in {sorted(set(intrs))} and shapes {sorted(set(shapes))}"
+        with span("register.read"):
+            inits = [self.initialize_pose(i2d) for i2d in i2ds]
+            intrs = [tuple(float(v) for v in x[1:6]) for x in inits]  # sdd..y0
+            shapes = [tuple(x[0].shape[-2:]) for x in inits]
+            if len(set(intrs)) != 1 or len(set(shapes)) != 1:
+                raise ValueError(
+                    "run_batch requires every X-ray to share intrinsics and shape; got (sdd, delx, "
+                    f"dely, x0, y0) in {sorted(set(intrs))} and shapes {sorted(set(shapes))}"
+                )
+            sdd, delx, dely, x0, y0 = intrs[0]
+            pf_to_afs = [x[6] for x in inits]
+            host_sync(self.device, len(inits))
+            gt = torch.cat([torch.as_tensor(x[0], device=self.device) for x in inits], dim=0)
+            init_pose = RigidTransform(
+                torch.cat([x[7].matrix.reshape(-1, 4, 4).to(self.device) for x in inits], dim=0)
             )
-        sdd, delx, dely, x0, y0 = intrs[0]
-        pf_to_afs = [x[6] for x in inits]
-        gt = torch.cat([torch.as_tensor(x[0], device=self.device) for x in inits], dim=0)
-        init_pose = RigidTransform(
-            torch.cat([x[7].matrix.reshape(-1, 4, 4).to(self.device) for x in inits], dim=0)
-        )
         K = gt.shape[0]
         H, W = gt.shape[-2:]
         intrinsics = dict(sdd=sdd, height=H, width=W, delx=delx, dely=dely, x0=-x0, y0=y0)
@@ -509,6 +539,7 @@ class RegistrarBase:
                 j_xyz = prng.uniform(-jitter_xyz, jitter_xyz, (n_seeds - 1, 3))
                 rot_s[jit] += np.tile(j_rot, (K, 1))
                 xyz_s[jit] += np.tile(j_xyz, (K, 1))
+            host_sync(self.device, 2)
             return convert(
                 torch.as_tensor(rot_s, dtype=torch.float32, device=self.device),
                 torch.as_tensor(xyz_s, dtype=torch.float32, device=self.device),
@@ -563,6 +594,7 @@ class RegistrarBase:
         )
         best_s, _ = _select(r_nccs)
         sel = np.arange(K) * S + best_s
+        host_sync(r_pose.matrix)  # the host's index, copied to the device
         final_pose = RigidTransform(r_pose.matrix.reshape(K * S, 4, 4)[torch.as_tensor(sel)])
         params, nccs, times, alphas = [], [], [], []
         for k in range(K):
@@ -587,6 +619,7 @@ class RegistrarBase:
                 r_mats = _host(r_pose.matrix).reshape(K * S, 4, 4)
                 sel = np.arange(K) * S + best_s
                 mats[improved] = r_mats[sel[improved]]
+                host_sync(self.device)
                 final_pose = RigidTransform(torch.as_tensor(mats, device=self.device))
                 for k in np.flatnonzero(improved):
                     # when the unperturbed seed wins, its row 0 repeats the
@@ -649,18 +682,20 @@ class RegistrarBase:
         return self._save_result(Path(i2d), outpath, result)
 
     def _save_result(self, i2d, outpath, result):
-        savepath = Path(outpath) / Path(i2d).stem
-        savepath.mkdir(parents=True, exist_ok=True)
-        gt, intrinsics, proj, init_pose, final_pose, kwargs = result
-        init_img = final_img = None
-        if self.saveimg:
-            scaled = proj.rescale_detector(max(intrinsics["height"] // 256, 1))
-            with torch.no_grad():
-                init_img = _host(scaled(init_pose))
-                if final_pose is not None:
-                    final_img = _host(scaled(final_pose))
-        self.save(savepath, gt, init_img, final_img, i2d, intrinsics, init_pose, final_pose, kwargs)
-        return savepath
+        with span("register.save"):
+            savepath = Path(outpath) / Path(i2d).stem
+            savepath.mkdir(parents=True, exist_ok=True)
+            gt, intrinsics, proj, init_pose, final_pose, kwargs = result
+            init_img = final_img = None
+            if self.saveimg:
+                scaled = proj.rescale_detector(max(intrinsics["height"] // 256, 1))
+                with torch.no_grad():
+                    init_img = _host(scaled(init_pose))
+                    if final_pose is not None:
+                        final_img = _host(scaled(final_pose))
+            self.save(savepath, gt, init_img, final_img, i2d, intrinsics, init_pose, final_pose,
+                      kwargs)
+            return savepath
 
     # ------------------------------------------------------------------
     def save(self, savepath, gt, init_img, final_img, i2d, intrinsics, init_pose, final_pose, kwargs):

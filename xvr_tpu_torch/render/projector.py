@@ -22,6 +22,7 @@ import torch
 
 from ..geometry.detector import Detector
 from ..geometry.se3 import RigidTransform
+from ..utils.profiling import host_sync
 from . import xla
 from .layout import choose_permutation_for_pose, measured_steepness
 from .volume import Volume, transform_hu_to_density
@@ -139,6 +140,7 @@ class Projector:
         own rotation without one), on the host."""
         if reference_pose is not None:
             oriented = self._oriented(_batched(reference_pose))
+            host_sync(oriented.R)
             return oriented.R.detach().cpu().double().numpy().reshape(-1, 3, 3).mean(axis=0)
         return orientation_transform(self.volume.orientation, device="cpu").R.numpy()
 
@@ -251,11 +253,13 @@ class Projector:
 
     def rays_host(self, pose: RigidTransform):
         """Host-side NumPy ray endpoints for steepness measurements."""
+        host_sync(pose.matrix)
         M = _batched(pose).matrix.detach().cpu().double().numpy()
         F = orientation_transform(self.volume.orientation, torch.float64, "cpu").matrix.numpy()
         return self.detector.rays_numpy(M @ F)
 
     def affine_inverse_host(self) -> np.ndarray:
+        host_sync(self.volume.affine)
         return self.affine_inverse.detach().cpu().numpy().astype(np.float32)
 
     def perspective_projection(self, pose: RigidTransform, pts: torch.Tensor) -> torch.Tensor:

@@ -61,6 +61,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.profiling import host_sync
 from . import _cuda
 from .layout import _choose_permutation
 
@@ -87,6 +88,7 @@ def channel_slab_bounds(mask, labels, perm, quantum: int = 16) -> tuple[tuple[in
     channel the bounding range of its voxels along the permuted march axis,
     padded to ``quantum``. Slabs outside a label's range add exactly zero."""
     if isinstance(mask, torch.Tensor):
+        host_sync(mask)
         mask = mask.detach().cpu().numpy()
     m = np.transpose(np.asarray(mask), perm)
     M = m.shape[0]
@@ -368,6 +370,7 @@ def _decompose(affine_inverse, source, target, perm):
     d_vox = t_vox - s_vox
     raylen = torch.linalg.norm(target - source.expand(target.shape), dim=-1)
     order = list(perm)
+    host_sync(source, 2)  # each gather copies the index from the host
     s_p, d_p = s_vox[..., order], d_vox[..., order]
     wscale = raylen / torch.clamp(torch.abs(d_p[..., 0]), min=1e-6)
     return s_p, d_p, wscale
@@ -545,6 +548,7 @@ def _resolve(density, affine_inverse, source, target, det_shape, perm, prepared,
     if source.shape[-2] != 1:
         raise ValueError("shear-warp requires a point source: source (B, 1, 3)")
     if perm is None:
+        host_sync(target, 2)
         d_mean = (target.mean(dim=(0, 1)) - source.mean(dim=(0, 1))).detach().cpu().numpy()
         A = affine_inverse.detach().cpu().numpy()
         perm = _choose_permutation(A[:3, :3] @ d_mean)

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from ..geometry.se3 import RigidTransform, make_matrix
+from ..utils.profiling import host_sync
 
 
 @dataclass(frozen=True)
@@ -67,6 +68,7 @@ def transform_hu_to_density(volume: torch.Tensor, bone_attenuation_multiplier: f
     bone = v > 350.0
     big = torch.finfo(torch.float32).max
     soft_min = torch.where(air, torch.full_like(v, big), v).min()
+    host_sync(soft_min, 2)  # the two tests read it on the host
     if not (torch.isfinite(soft_min) and soft_min < big):
         soft_min = torch.tensor(-800.0, device=v.device)
     density = torch.where(air, soft_min, v)

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from ..metrics.ncc import _depthwise2d
+from ..utils.profiling import host_sync
 from ..utils.transforms import standardize
 
 ERASE_SCALE = (0.02, 0.33)
@@ -88,6 +89,7 @@ def clahe(x: torch.Tensor, clip_limit: torch.Tensor, grid: int = 8, n_bins: int 
     cdf = (cdf / cdf[..., -1:]).reshape(B, grid, grid, n_bins)
 
     corner_y, corner_x, w, (cy, cx, th2, tw2) = _clahe_corner_plan(H, W, grid)
+    host_sync(x, 3)  # the plan's three copies from the host
     cy_t = torch.as_tensor(corner_y, device=x.device)
     cx_t = torch.as_tensor(corner_x, device=x.device)
     # (B, C2, 4, K): each cell's four corner CDFs, read as bf16 like the JAX

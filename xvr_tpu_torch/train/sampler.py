@@ -9,6 +9,7 @@ from __future__ import annotations
 import torch
 
 from ..geometry import RigidTransform, convert
+from ..utils.profiling import host_sync
 
 # the order of the draws: alpha, beta, gamma, tx, ty, tz
 RANGE_KEYS = ("alpha", "beta", "gamma", "tx", "ty", "tz")
@@ -26,6 +27,7 @@ def pose_from_uniforms(
     """(B, 6) uniforms on [0, 1), columns in :data:`RANGE_KEYS` order -> poses."""
     lo = [alphamin, betamin, gammamin, txmin, tymin, tzmin]
     hi = [alphamax, betamax, gammamax, txmax, tymax, tzmax]
+    host_sync(u, 2)  # the bounds' copies from the host
     lo_t = torch.tensor(lo, dtype=u.dtype, device=u.device)
     hi_t = torch.tensor(hi, dtype=u.dtype, device=u.device)
     x = lo_t + u * (hi_t - lo_t)

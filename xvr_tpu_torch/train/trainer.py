@@ -46,6 +46,7 @@ from ..render.projector import Projector
 from ..render.volume import Volume, transform_hu_to_density
 from ..state import from_flax_params, to_flax_params
 from ..utils.itk import get_4x4
+from ..utils.profiling import span
 from ..utils.transforms import make_xray_transforms
 from .augmentations import apply_augmentations, draw_augmentations
 from .checkpoint import latest_checkpoint, load_checkpoint, save_checkpoint
@@ -446,15 +447,17 @@ class Trainer:
     def loss_and_grads(self, projectors, center, draws: dict):
         """Loss, metrics and the parameter gradients of one step, given its
         draws. -> (loss, metrics, {name: grad})."""
-        pose = RigidTransform(draws["pose"]).compose(make_translation(center))
-        density = transform_hu_to_density(projectors[0].volume.data, draws["contrast"])
-        # pack/permute once per step, for both renders and the backward
-        packed = [p.pack_for_pallas(density) if p.renderer == "trilinear_pallas" else None
-                  for p in projectors]
-        prepared = [p.prepare_for_shearwarp(density) if p.renderer.endswith(_FAST) else None
-                    for p in projectors]
-        with torch.no_grad():
-            raw = self.render_batch(projectors, pose, density, packed, prepared)
+        with span("train.render"):
+            pose = RigidTransform(draws["pose"]).compose(make_translation(center))
+            density = transform_hu_to_density(projectors[0].volume.data, draws["contrast"])
+            # pack/permute once per step, for both renders and the backward
+            packed = [p.pack_for_pallas(density) if p.renderer == "trilinear_pallas" else None
+                      for p in projectors]
+            prepared = [p.prepare_for_shearwarp(density) if p.renderer.endswith(_FAST) else None
+                        for p in projectors]
+            with torch.no_grad():
+                raw = self.render_batch(projectors, pose, density, packed, prepared)
+        with span("train.augment"), torch.no_grad():
             fg = (raw > 0).to(raw.dtype)
             img = raw.sum(dim=1, keepdim=True)
             if raw.shape[1] > 1:
@@ -464,25 +467,30 @@ class Trainer:
                 keep = fg.mean(dim=(1, 2, 3)) > IMG_THRESHOLD
             keep = keep.to(img.dtype)
             x = self.transforms(apply_augmentations(img, draws["aug"]))
-        rot, xyz = self.apply_model(x)
-        pred_pose = self.model.decode(rot, xyz)
-        if self.reframe is not None:
-            pred_pose = pred_pose.compose(self.reframe)
+        with span("train.cnn"):
+            rot, xyz = self.apply_model(x)
+            pred_pose = self.model.decode(rot, xyz)
+            if self.reframe is not None:
+                pred_pose = pred_pose.compose(self.reframe)
         # the re-render at the predicted poses, each in its target's stratum
-        praw = self.render_batch(projectors, pred_pose, density, packed, prepared)
-        pfg = (praw > 0).to(praw.dtype).detach()
-        pimg = praw.sum(dim=1, keepdim=True)
-        loss, metrics = pose_regression_loss(
-            self.transforms(img), fg, pose, self.transforms(pimg), pfg, pred_pose,
-            keep, self.sdd, **self.loss_weights,
-        )
-        grads = torch.autograd.grad(loss, list(self.params.values()))
+        with span("train.render"):
+            praw = self.render_batch(projectors, pred_pose, density, packed, prepared)
+        with span("train.loss"):
+            pfg = (praw > 0).to(praw.dtype).detach()
+            pimg = praw.sum(dim=1, keepdim=True)
+            loss, metrics = pose_regression_loss(
+                self.transforms(img), fg, pose, self.transforms(pimg), pfg, pred_pose,
+                keep, self.sdd, **self.loss_weights,
+            )
+        with span("train.backward"):
+            grads = torch.autograd.grad(loss, list(self.params.values()))
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}, dict(zip(self.params, grads))
 
     def train_step(self, projectors, center, draws: dict) -> dict:
         """One step on given draws: gradients, then the optimizer."""
         loss, metrics, grads = self.loss_and_grads(projectors, center, draws)
-        self.tx.step(self.params, grads, self.opt_state)
+        with span("train.optim"):
+            self.tx.step(self.params, grads, self.opt_state)
         metrics["loss"] = loss
         return metrics
 
@@ -512,11 +520,14 @@ class Trainer:
         return tuple(p.replace(volume=cropped, density=data) for p in projectors), cropped.center
 
     def step(self, itr: int) -> dict:
-        idx = self._pick_subject()
-        projectors, center = self.projectors[idx], self.centers[idx]
-        if self.patch_size is not None:
-            projectors, center = self._crop_patch(projectors)
-        return self.train_step(projectors, center, self.draw())
+        with span("train.step", request=True):
+            idx = self._pick_subject()
+            projectors, center = self.projectors[idx], self.centers[idx]
+            if self.patch_size is not None:
+                projectors, center = self._crop_patch(projectors)
+            with span("train.draw"):
+                draws = self.draw()
+            return self.train_step(projectors, center, draws)
 
     def train(self, run=None, log_every: int = 1, progress: bool = True):
         """Host training loop with checkpointing and logging; under
