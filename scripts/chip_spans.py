@@ -31,7 +31,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
-LAUNCHES = ("cudaLaunchKernel", "cuLaunchKernel")  # and their Ex forms
+LAUNCHES = ("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch")  # and their Ex forms
 
 
 def kineto(prof):

@@ -10,8 +10,9 @@ profiler's trace too, with one request id per ``run_batch`` or step, the
 loop's iterations counted as ``stage_log`` counts them, and results bit for
 bit those of a run with tracing off. On the card (``pytest -m gpu``):
 ``host_syncs`` counts every synchronizing call that
-``torch.cuda.set_sync_debug_mode("warn")`` reports, and the leaf spans cover
-the kernel launches.
+``torch.cuda.set_sync_debug_mode("warn")`` reports (the registration's
+iterations replayed as CUDA graphs), and the leaf spans cover the kernel
+and graph launches, of the replayed loop and of the loop run op by op.
 """
 
 from __future__ import annotations
@@ -43,9 +44,10 @@ STAGE_SPANS = ("register.render", "register.similarity", "register.backward", "r
 TRAIN_SPANS = ("train.draw", "train.render", "train.augment", "train.cnn", "train.loss",
                "train.backward", "train.optim")
 PARENTS = {"register.request": None, "register.read": "register.request",
+           "register.prepare": "register.request", "register.seed": "register.request",
            "register.stage": "register.request", "register.save": None,
            **{k: "register.stage" for k in STAGE_SPANS}}
-LAUNCHES = ("cudaLaunchKernel", "cuLaunchKernel")  # and their Ex forms
+LAUNCHES = ("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch")  # and their Ex forms
 
 
 @pytest.fixture(autouse=True)
@@ -254,8 +256,9 @@ def test_register_span_is_in_the_profiler_trace(registered, name):
 
 
 def test_register_spans_nest(registered):
-    """request > read, stage > the five spans of the loop; save after the
-    request; the loop's spans tile a stage but for its set-up."""
+    """request > read, prepare, seed, stage > the five spans of the loop;
+    save after the request; the loop's spans tile a stage but for its
+    set-up."""
     _, _, snap = registered
     by_id = {r["id"]: r for r in snap["records"]}
     for r in snap["records"]:
@@ -340,8 +343,10 @@ def cuda():
 
 def _card_work(kind, scene, tmp_path):
     """One request of a one-stage registration, or one training step (after
-    a first that builds and warms), on the card -> the call."""
-    if kind == "register":
+    a first that builds, warms and captures the stage's graph), on the card
+    -> the call. ``register_eager``: the registration's loop runs op by op,
+    as it does on a mesh and on the slab kernels (the caller forces it)."""
+    if kind.startswith("register"):
         reg = _registrar(scene, "cuda", scales="2", n_itrs="6")
         reg.run(scene[0] / "xray0.dcm")
         return lambda: reg.run(scene[0] / "xray1.dcm")
@@ -381,8 +386,16 @@ def test_host_syncs_count_every_synchronizing_call(cuda, scene, tmp_path, kind):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("kind", ["register", "train"])
-def test_leaf_spans_cover_the_kernel_launches(cuda, scene, tmp_path, kind):
+@pytest.mark.parametrize("kind", ["register", "train", "register_eager"])
+def test_leaf_spans_cover_the_kernel_launches(cuda, scene, tmp_path, monkeypatch, kind):
+    """A registration's launches (a replayed iteration's graph launch, and
+    the stage's set-up, scoring and copies around the replays) lie in leaf
+    spans, and so do those of the loop run op by op and of a training
+    step."""
+    if kind == "register_eager":
+        from xvr_tpu_torch.registrar import base
+
+        monkeypatch.setattr(base, "_graphs_engage", lambda *a: False)
     work = _card_work(kind, scene, tmp_path)
     torch.cuda.synchronize()
     with _profiler("cuda") as prof:

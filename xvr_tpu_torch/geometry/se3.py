@@ -106,11 +106,9 @@ def make_matrix(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     R = R.expand(batch + (3, 3))
     t = t.expand(batch + (3,))
     top = torch.cat([R, t[..., :, None]], dim=-1)
-    if R.is_cuda:
-        from ..utils.profiling import host_sync  # here: utils imports this module
+    from ..utils.device import device_constant  # here: utils imports this module
 
-        host_sync(R)  # the row's copy from the host waits for the device
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=R.dtype, device=R.device)
+    bottom = device_constant((0.0, 0.0, 0.0, 1.0), R.dtype, R.device)
     return torch.cat([top, bottom.expand(batch + (1, 4))], dim=-2)
 
 

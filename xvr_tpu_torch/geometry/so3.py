@@ -230,16 +230,14 @@ def matrix_to_rotation_6d(R: torch.Tensor) -> torch.Tensor:
 # eigenvector of a symmetric 4x4 for its SMALLEST eigenvalue, as a quaternion.
 # quaternion_adjugate (Hanson & Hanson, 2022): the 10 unique entries of q q^T.
 
-_TRIU_I, _TRIU_J = torch.triu_indices(4, 4)
+_TRIU = tuple(tuple(r) for r in torch.triu_indices(4, 4).tolist())
 
 
 def _triu(device):
     """The upper triangle's indices on ``device``."""
-    if device.type == "cuda":
-        from ..utils.profiling import host_sync  # here: utils imports this package
+    from ..utils.device import device_constant  # here: utils imports this package
 
-        host_sync(device, 2)  # their copies from the host wait for the device
-    return _TRIU_I.to(device), _TRIU_J.to(device)
+    return tuple(device_constant(r, torch.int64, device) for r in _TRIU)
 
 
 def vec10_to_symmetric(v: torch.Tensor) -> torch.Tensor:

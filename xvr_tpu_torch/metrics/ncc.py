@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..utils.device import device_constant
 from ..utils.profiling import host_sync
 
 
@@ -76,10 +77,14 @@ def _depthwise2d(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
         return F.conv2d(x, k, padding=(kh // 2, kw // 2), groups=C)
 
 
+_SOBEL = tuple(tuple(v / 8.0 for v in row) for row in _SOBEL_X)
+
+
 def sobel(x: torch.Tensor) -> torch.Tensor:
     """Spatial gradients: (B, C, H, W) -> (B, 2C, H, W) [d/dx, d/dy]."""
-    kx = torch.tensor(_SOBEL_X) / 8.0
-    return torch.cat([_depthwise2d(x, kx), _depthwise2d(x, kx.T.contiguous())], dim=1)
+    kx = device_constant(_SOBEL, x.dtype, x.device)
+    ky = device_constant(tuple(zip(*_SOBEL)), x.dtype, x.device)
+    return torch.cat([_depthwise2d(x, kx), _depthwise2d(x, ky)], dim=1)
 
 
 def gaussian_blur(x: torch.Tensor, sigma: float) -> torch.Tensor:
@@ -88,8 +93,10 @@ def gaussian_blur(x: torch.Tensor, sigma: float) -> torch.Tensor:
     radius = max(int(3.0 * sigma + 0.5), 1)
     t = torch.arange(-radius, radius + 1, dtype=x.dtype)
     k1 = torch.exp(-0.5 * (t / sigma) ** 2)
-    k1 = k1 / k1.sum()
-    return _depthwise2d(_depthwise2d(x, k1[None, :]), k1[:, None])
+    k1 = tuple((k1 / k1.sum()).tolist())
+    k_row = device_constant((k1,), x.dtype, x.device)
+    k_col = device_constant(tuple((v,) for v in k1), x.dtype, x.device)
+    return _depthwise2d(_depthwise2d(x, k_row), k_col)
 
 
 def gradient_ncc(x, y, patch_size: int = 11, sigma: float = 0.0) -> torch.Tensor:

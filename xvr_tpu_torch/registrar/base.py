@@ -1,7 +1,9 @@
 """The test-time optimization engine for 2D/3D registration.
 
 Counterpart of ``xvr_tpu.registrar.base``. One pyramid stage is a Python loop
-(the JAX package compiles it as one ``lax.while_loop``): per iteration, pose
+(the JAX package compiles it as one ``lax.while_loop``; on a CUDA device with
+the shear-warp renderer and no mesh, each iteration is one replay of a CUDA
+graph, and the host only checks the exit condition): per iteration, pose
 -> ``convert`` -> rays -> render -> X-ray transforms -> beta * mNCC +
 (1 - beta) * gNCC -> gradient -> Adam ascent, with a per-image plateau state
 machine (ReduceLROnPlateau semantics), an lr warmup, argmax-pose tracking and
@@ -34,6 +36,7 @@ import torch
 from ..geometry import RigidTransform, convert
 from ..metrics.ncc import make_imagesim
 from ..render.load import initialize_drr
+from ..render import _cuda
 from ..render.projector import Projector
 from ..utils.profiling import count, host_sync, span
 from ..utils.transforms import make_xray_transforms
@@ -83,6 +86,165 @@ def _drift_probes(pose: RigidTransform, rot_deg: float = 15.0, t_mm: float = 30.
 def _host(x: torch.Tensor) -> np.ndarray:
     host_sync(x)
     return x.detach().cpu().numpy()
+
+
+# Adam's constants (the reference's)
+_B1, _B2, _EPS = 0.9, 0.999, 1e-8
+# rows of a stage graph's tables and records: the least power of two that
+# holds n_itr, and at least this many, so that stages of one shape share a
+# graph whatever their n_itr up to it
+_GRAPH_ROWS = 1024
+_MAX_STAGE_GRAPHS = 8  # cached per registrar
+# their stages run op by op: rotation_10d's conversion reads the host (eigh
+# checks its result there), which a CUDA graph cannot hold, and
+# quaternion_adjugate's has not been tried under capture
+_HOST_BOUND_PARAMETERIZATIONS = ("rotation_10d", "quaternion_adjugate")
+
+
+def _graphs_engage(projector: Projector, mesh, parameterization: str) -> bool:
+    """Whether a stage replays its iterations as a CUDA graph: on a CUDA
+    device, without a mesh (whose renders gather across devices), with the
+    shear-warp renderer (K1-K4; the slab kernels' and the golden renderers'
+    stages stay op by op) and a parameterization that a graph can hold."""
+    return (mesh is None and projector.renderer.endswith("_fast")
+            and projector.device.type == "cuda"
+            and parameterization not in _HOST_BOUND_PARAMETERIZATIONS)
+
+
+class _HostClock:
+    """The stage loop's per-iteration scalars from the host's count ``i``:
+    Adam's bias corrections, the lr warmup, whether patience ticks, the
+    iteration's number and its record row."""
+
+    def __init__(self, warmup: float, dtype):
+        self.warmup, self.dtype, self.i = warmup, dtype, 0
+        self.b1, self.b2 = torch.tensor(_B1, dtype=dtype), torch.tensor(_B2, dtype=dtype)
+
+    def corrections(self) -> tuple[float, float]:
+        t = torch.tensor(self.i + 1.0, dtype=self.dtype)
+        return float(1 - self.b1**t), float(1 - self.b2**t)
+
+    def unbias(self, m, v):
+        c1, c2 = self.corrections()
+        return m / c1, v / c2
+
+    def warm(self) -> float:
+        return min((self.i + 1.0) / self.warmup, 1.0)
+
+    def ticking(self) -> bool:
+        return self.i + 1.0 >= self.warmup
+
+    def itr(self, like):
+        return torch.full_like(like, self.i + 1)
+
+    def record(self, buf, row) -> None:
+        buf[self.i] = row
+
+    def advance(self) -> None:
+        self.i += 1
+
+
+class _DeviceClock:
+    """The same scalars from tables on the device, read at a counter on the
+    device, so that one captured iteration reads the current iteration's
+    values. The tables hold the host's values bit for bit; a CUDA tensor
+    divided by a Python float is multiplied by the float's float32
+    reciprocal, so they hold the bias corrections' reciprocals."""
+
+    def __init__(self, rows: int, warmup: float, dtype, device):
+        host = _HostClock(warmup, dtype)
+        cols = []
+        for i in range(rows):
+            host.i = i
+            c1, c2 = host.corrections()
+            cols.append((np.float32(1.0) / np.float32(c1), np.float32(1.0) / np.float32(c2),
+                         host.warm(), host.ticking()))
+        table = np.asarray(cols, dtype=np.float64).T
+        host_sync(device, 2)
+        self.inv_c1, self.inv_c2, self.warm_tab = torch.tensor(table[:3], dtype=dtype).to(device)
+        self.tick_tab = torch.tensor(table[3] > 0).to(device)
+        self.ctr = torch.zeros(1, dtype=torch.int64, device=device)
+
+    def _at(self, table):
+        return table.index_select(0, self.ctr)
+
+    def unbias(self, m, v):
+        return m * self._at(self.inv_c1), v * self._at(self.inv_c2)
+
+    def warm(self):
+        return self._at(self.warm_tab)
+
+    def ticking(self):
+        return self._at(self.tick_tab)
+
+    def itr(self, like):
+        return (self.ctr + 1).to(like.dtype)
+
+    def record(self, buf, row) -> None:
+        buf.index_copy_(0, self.ctr, row[None])
+
+    def advance(self) -> None:
+        self.ctr.add_(1)
+
+
+class _StageGraph:
+    """One stage shape's loop iteration as a CUDA graph over static buffers:
+    the loop's state ``st`` and records ``rec``, the per-iteration scalars'
+    tables (``clock``), the X-ray ``gt`` and the ``prepared`` volume, which
+    :meth:`load` fills at each stage's start. The first iteration after the
+    graph is made runs op by op on the graph's stream (cuBLAS, cuDNN and the
+    autograd engine set themselves up there), the next is captured and
+    replayed, and every later one, in any stage of the same key, is one
+    replay. ``owner`` keeps alive what the captured work reads besides the
+    buffers (the projector's volume)."""
+
+    def __init__(self, st: dict, rec: tuple, clock: _DeviceClock, gt, prepared, owner):
+        self.st, self.rec, self.clock = st, rec, clock
+        self.gt, self.prepared, self.owner = gt, prepared, owner
+        self.stream = self.graph = self.launches = None
+        self.warmed = False
+
+    def load(self, st: dict, rec: tuple, gt, prepared) -> None:
+        for k, v in st.items():
+            self.st[k].copy_(v)
+        for buf, v in zip(self.rec, rec):
+            buf.copy_(v)
+        self.clock.ctr.zero_()
+        self.gt.copy_(gt)
+        self.prepared.copy_(prepared)
+
+    def _step(self, iterate) -> None:
+        new = iterate(self.st, self.rec, self.clock, self.gt, self.prepared)
+        with span("register.update"):
+            for k, v in new.items():
+                self.st[k].copy_(v)
+            self.clock.advance()
+
+    def run(self, iterate) -> int:
+        """One iteration of ``iterate`` on the buffers -> 1 if it was a
+        replay."""
+        if self.graph is None:
+            if self.stream is None:
+                self.stream = torch.cuda.Stream(self.gt.device)
+            cur = torch.cuda.current_stream(self.stream.device)
+            self.stream.wait_stream(cur)
+            if not self.warmed:
+                with torch.cuda.stream(self.stream):
+                    self._step(iterate)
+                cur.wait_stream(self.stream)
+                self.warmed = True
+                return 0
+            graph = torch.cuda.CUDAGraph()
+            with _cuda.captured() as self.launches:
+                with torch.cuda.graph(graph, stream=self.stream):
+                    self._step(iterate)
+            cur.wait_stream(self.stream)
+            count("register.graph_captures")
+            self.graph = graph
+        with span("register.replay"):
+            self.graph.replay()
+        _cuda.replayed(self.launches)
+        return 1
 
 
 class RegistrarBase:
@@ -177,6 +339,8 @@ class RegistrarBase:
         self.save_kwargs = save_kwargs or {}
         # one record per stage run: detector, iterations, wall time
         self.stage_log: list[dict] = []
+        # the stages' CUDA graphs by key, least recently used first
+        self._stage_graphs: dict[tuple, _StageGraph] = {}
 
         self.projector = initialize_drr(
             volume,
@@ -201,22 +365,43 @@ class RegistrarBase:
         raise NotImplementedError
 
     # ------------------------------------------------------------------
+    def _stage_graph(self, key, make) -> "_StageGraph":
+        """The cached stage graph of ``key``, made by ``make(prepared_buffer)``
+        when there is none (the buffer of a cached graph whose volume has the
+        same shape, else None; stages run one at a time, so they may share
+        it). The least recently used of more than ``_MAX_STAGE_GRAPHS`` is
+        dropped."""
+        graphs = self._stage_graphs
+        entry = graphs.pop(key, None)
+        if entry is None:
+            shape = key[-1]
+            entry = make(next((e.prepared for e in graphs.values()
+                               if (e.prepared.shape, e.prepared.dtype) == shape), None))
+            if len(graphs) >= _MAX_STAGE_GRAPHS:
+                graphs.pop(next(iter(graphs)))
+        graphs[key] = entry
+        return entry
+
+    # ------------------------------------------------------------------
     def _make_stage(self, projector: Projector, n_itr: int, mncc_patch_size, gncc_patch_size,
                     sigma, beta):
         """One pyramid stage as a function of (rot, xyz, gt, density, lr_rot,
-        lr_xyz), plus the X-ray transform of its detector."""
+        lr_xyz), plus the X-ray transform of its detector. Where
+        :func:`_graphs_engage`, the stage replays each iteration as one CUDA
+        graph (:class:`_StageGraph`, cached on the registrar); elsewhere it
+        runs the iterations op by op. Both give the same bits."""
         H, W = projector.detector.height, projector.detector.width
         transform = make_xray_transforms(H, W, use_equalize=self.equalize)
         parameterization, convention = self.parameterization, self.convention
         patience, threshold = self.patience, self.threshold
         max_n_plateaus = self.max_n_plateaus
         warmup = float(self.stage_warmup)
-        b1, b2, eps = 0.9, 0.999, 1e-8
         use_fast = projector.renderer.endswith("_fast")
         use_pallas = projector.renderer == "trilinear_pallas"
 
         imagesim = make_imagesim(mncc_patch_size, gncc_patch_size, sigma, beta)
         mesh = self.mesh
+        graphed = _graphs_engage(projector, mesh, parameterization)
 
         def render(pose, density, packed, prepared):
             B = pose.matrix.shape[0]
@@ -247,119 +432,181 @@ class RegistrarBase:
                 host_sync(n_plateaus)
                 return bool((n_plateaus < max_n_plateaus).any())
 
-        def stage(rot, xyz, gt, density, lr_rot, lr_xyz):
-            # permute/cast the volume once per stage, outside the loop
-            packed = projector.pack_for_pallas(density) if use_pallas else None
-            prepared = projector.prepare_for_shearwarp(density) if use_fast else None
+        def fresh(rot, xyz, rows):
+            """The loop's state at the stage's start, and its records (the
+            pose after each step, the similarity before it, the lrs) of
+            ``rows`` iterations."""
             K = rot.shape[0]
             dev, fdt = rot.device, rot.dtype
             rot, xyz = rot.detach().clone(), xyz.detach().clone()
-            m_r, v_r = torch.zeros_like(rot), torch.zeros_like(rot)
-            m_x, v_x = torch.zeros_like(xyz), torch.zeros_like(xyz)
-            traj = torch.zeros((n_itr, K, 6), dtype=fdt, device=dev)
-            nccs = torch.zeros((n_itr, K), dtype=fdt, device=dev)
-            lrs = torch.zeros((n_itr, K, 2), dtype=fdt, device=dev)
-            b_rot, b_xyz = rot.clone(), xyz.clone()
-            best_raw = torch.full((K,), -float("inf"), dtype=fdt, device=dev)
-            lr_scale = torch.ones((K,), dtype=fdt, device=dev)
-            best = torch.full((K,), -float("inf"), dtype=fdt, device=dev)
-            num_bad = torch.zeros((K,), dtype=torch.int32, device=dev)
-            # the reference's lr-drop counter starts at +inf, so the first
-            # step counts one plateau
-            n_plateaus = torch.zeros((K,), dtype=torch.int32, device=dev)
-            current_lr = torch.full((K,), float("inf"), dtype=fdt, device=dev)
-            done_itr = torch.full((K,), n_itr, dtype=torch.int32, device=dev)
-            b1_, b2_ = torch.tensor(b1, dtype=fdt), torch.tensor(b2, dtype=fdt)
+            st = dict(
+                rot=rot, xyz=xyz, m_r=torch.zeros_like(rot), v_r=torch.zeros_like(rot),
+                m_x=torch.zeros_like(xyz), v_x=torch.zeros_like(xyz),
+                b_rot=rot.clone(), b_xyz=xyz.clone(),
+                best_raw=torch.full((K,), -float("inf"), dtype=fdt, device=dev),
+                lr_scale=torch.ones((K,), dtype=fdt, device=dev),
+                best=torch.full((K,), -float("inf"), dtype=fdt, device=dev),
+                num_bad=torch.zeros((K,), dtype=torch.int32, device=dev),
+                # the reference's lr-drop counter starts at +inf, so the
+                # first step counts one plateau
+                n_plateaus=torch.zeros((K,), dtype=torch.int32, device=dev),
+                current_lr=torch.full((K,), float("inf"), dtype=fdt, device=dev),
+                done_itr=torch.full((K,), n_itr, dtype=torch.int32, device=dev),
+            )
+            rec = (torch.zeros((rows, K, 6), dtype=fdt, device=dev),
+                   torch.zeros((rows, K), dtype=fdt, device=dev),
+                   torch.zeros((rows, K, 2), dtype=fdt, device=dev))
+            return st, rec
 
-            i = 0
-            while running(i, n_plateaus):
-                with span("register.render"):
-                    r_ = rot.requires_grad_(True)
-                    x_ = xyz.requires_grad_(True)
-                    img = rendered(r_, x_, density, packed, prepared)
-                with span("register.similarity"):
-                    sims = imagesim(gt, transform(img))
-                with span("register.backward"):
-                    g_r, g_x = torch.autograd.grad(sims.sum(), (r_, x_))
-                with span("register.update"):
-                    t = torch.tensor(i + 1.0, dtype=fdt)
-                    live = n_plateaus < max_n_plateaus
-                    rot, xyz = r_.detach(), x_.detach()
-                    loss = sims.detach()
-                    c1 = float(1 - b1_**t)
-                    c2 = float(1 - b2_**t)
+        def iterate(st, rec, clock, gt, density, packed, prepared, lr_rot, lr_xyz) -> dict:
+            """One iteration from the state ``st`` -> the new state; the
+            records ``rec`` are written in place at ``clock``'s row."""
+            K = st["rot"].shape[0]
+            with span("register.render"):
+                r_ = st["rot"].detach().requires_grad_(True)
+                x_ = st["xyz"].detach().requires_grad_(True)
+                img = rendered(r_, x_, density, packed, prepared)
+            with span("register.similarity"):
+                sims = imagesim(gt, transform(img))
+            with span("register.backward"):
+                g_r, g_x = torch.autograd.grad(sims.sum(), (r_, x_))
+            with span("register.update"):
+                n_plateaus, lr_scale = st["n_plateaus"], st["lr_scale"]
+                live = n_plateaus < max_n_plateaus
+                rot, xyz = r_.detach(), x_.detach()
+                loss = sims.detach()
 
-                    def adam(p, m, v, g, lr):
-                        m = b1 * m + (1 - b1) * g
-                        v = b2 * v + (1 - b2) * g * g
-                        return p + lr[:, None] * (m / c1) / (torch.sqrt(v / c2) + eps), m, v
+                def adam(p, m, v, g, lr):
+                    m = _B1 * m + (1 - _B1) * g
+                    v = _B2 * v + (1 - _B2) * g * g
+                    m_hat, v_hat = clock.unbias(m, v)
+                    return p + lr[:, None] * m_hat / (torch.sqrt(v_hat) + _EPS), m, v
 
-                    def frozen(new, old):
-                        return torch.where(live[:, None], new, old)
+                def frozen(new, old):
+                    return torch.where(live[:, None], new, old)
 
-                    # lr warmup: fresh Adam moments move a full +-lr per
-                    # component on the first steps; ramp them in
-                    warm = min((i + 1.0) / warmup, 1.0)
-                    lr_r = lr_rot * lr_scale * warm
-                    lr_x = lr_xyz * lr_scale * warm
-                    rot2, m_r2, v_r2 = adam(rot, m_r, v_r, g_r, lr_r)
-                    xyz2, m_x2, v_x2 = adam(xyz, m_x, v_x, g_x, lr_x)
-                    rot2, m_r2, v_r2 = frozen(rot2, rot), frozen(m_r2, m_r), frozen(v_r2, v_r)
-                    xyz2, m_x2, v_x2 = frozen(xyz2, xyz), frozen(m_x2, m_x), frozen(v_x2, v_x)
+                # lr warmup: fresh Adam moments move a full +-lr per
+                # component on the first steps; ramp them in
+                warm = clock.warm()
+                lr_r = lr_rot * lr_scale * warm
+                lr_x = lr_xyz * lr_scale * warm
+                m_r, v_r, m_x, v_x = st["m_r"], st["v_r"], st["m_x"], st["v_x"]
+                rot2, m_r2, v_r2 = adam(rot, m_r, v_r, g_r, lr_r)
+                xyz2, m_x2, v_x2 = adam(xyz, m_x, v_x, g_x, lr_x)
+                rot2, m_r2, v_r2 = frozen(rot2, rot), frozen(m_r2, m_r), frozen(v_r2, v_r)
+                xyz2, m_x2, v_x2 = frozen(xyz2, xyz), frozen(m_x2, m_x), frozen(v_x2, v_x)
 
-                    # argmax-pose tracking (the loss is of the PRE-step pose)
-                    raw_improved = (loss > best_raw) & live
-                    best_raw = torch.where(raw_improved, loss, best_raw)
-                    b_rot = torch.where(raw_improved[:, None], rot, b_rot)
-                    b_xyz = torch.where(raw_improved[:, None], xyz, b_xyz)
+                # argmax-pose tracking (the loss is of the PRE-step pose)
+                raw_improved = (loss > st["best_raw"]) & live
+                best_raw = torch.where(raw_improved, loss, st["best_raw"])
+                b_rot = torch.where(raw_improved[:, None], rot, st["b_rot"])
+                b_xyz = torch.where(raw_improved[:, None], xyz, st["b_xyz"])
 
-                    # scheduler.step(loss); warmup iterations do not tick patience
-                    improved = loss > best * (1.0 + threshold)
-                    best = torch.where(improved & live, loss, best)
-                    ticking = live & (i + 1.0 >= warmup)
-                    num_bad = torch.where(
-                        ticking, torch.where(improved, torch.zeros_like(num_bad), num_bad + 1),
-                        num_bad,
-                    )
-                    reduce = (num_bad > patience) & live
-                    lr_scale = torch.where(reduce, lr_scale * 0.1, lr_scale)
-                    num_bad = torch.where(reduce, torch.zeros_like(num_bad), num_bad)
+                # scheduler.step(loss); warmup iterations do not tick patience
+                num_bad = st["num_bad"]
+                improved = loss > st["best"] * (1.0 + threshold)
+                best = torch.where(improved & live, loss, st["best"])
+                ticking = live & clock.ticking()
+                num_bad = torch.where(
+                    ticking, torch.where(improved, torch.zeros_like(num_bad), num_bad + 1),
+                    num_bad,
+                )
+                reduce = (num_bad > patience) & live
+                lr_scale = torch.where(reduce, lr_scale * 0.1, lr_scale)
+                num_bad = torch.where(reduce, torch.zeros_like(num_bad), num_bad)
 
-                    # plateau counting on observed lr drops (the initial one too)
-                    lr_now = lr_rot * lr_scale
-                    dropped = (lr_now < current_lr) & live
-                    current_lr = torch.where(dropped, lr_now, current_lr)
-                    n_plateaus = n_plateaus + dropped.to(n_plateaus.dtype)
-                    newly_done = (n_plateaus >= max_n_plateaus) & live
-                    done_itr = torch.where(newly_done, torch.full_like(done_itr, i + 1), done_itr)
+                # plateau counting on observed lr drops (the initial one too)
+                lr_now = lr_rot * lr_scale
+                dropped = (lr_now < st["current_lr"]) & live
+                current_lr = torch.where(dropped, lr_now, st["current_lr"])
+                n_plateaus = n_plateaus + dropped.to(n_plateaus.dtype)
+                newly_done = (n_plateaus >= max_n_plateaus) & live
+                done_itr = torch.where(newly_done, clock.itr(st["done_itr"]), st["done_itr"])
 
-                    # record (pose after the step, similarity before it)
-                    pose2 = convert(rot2, xyz2, parameterization=parameterization,
-                                    convention=convention)
-                    e_rot, e_xyz = pose2.convert("euler_angles", "ZXY")
-                    traj[i] = torch.cat([e_rot.reshape(K, -1)[:, :3], e_xyz.reshape(K, -1)[:, :3]],
-                                        1)
-                    nccs[i] = loss
-                    lrs[i] = torch.stack([lr_r, lr_x], dim=1)
-                    rot, xyz = rot2, xyz2
-                    m_r, v_r, m_x, v_x = m_r2, v_r2, m_x2, v_x2
-                    count("register.iterations")
-                    i += 1
+                # record (pose after the step, similarity before it)
+                pose2 = convert(rot2, xyz2, parameterization=parameterization,
+                                convention=convention)
+                e_rot, e_xyz = pose2.convert("euler_angles", "ZXY")
+                traj, nccs, lrs = rec
+                clock.record(traj, torch.cat([e_rot.reshape(K, -1)[:, :3],
+                                              e_xyz.reshape(K, -1)[:, :3]], 1))
+                clock.record(nccs, loss)
+                clock.record(lrs, torch.stack([lr_r, lr_x], dim=1))
+            return dict(rot=rot2, xyz=xyz2, m_r=m_r2, v_r=v_r2, m_x=m_x2, v_x=v_x2,
+                        b_rot=b_rot, b_xyz=b_xyz, best_raw=best_raw, best=best, num_bad=num_bad,
+                        lr_scale=lr_scale, current_lr=current_lr, n_plateaus=n_plateaus,
+                        done_itr=done_itr)
 
+        def finish(st, rec, i, gt, density, packed, prepared):
             # the loop records PRE-step losses, so the final iterate was never
             # scored: score it and keep, per image, the better of (last, argmax)
             with torch.no_grad():
                 with span("register.render"):
-                    img = rendered(rot, xyz, density, packed, prepared)
+                    img = rendered(st["rot"], st["xyz"], density, packed, prepared)
                 with span("register.similarity"):
                     last_ncc = imagesim(gt, transform(img))
             with span("register.update"):
-                use_last = last_ncc >= best_raw
-                rot_out = torch.where(use_last[:, None], rot, b_rot)
-                xyz_out = torch.where(use_last[:, None], xyz, b_xyz)
-                final_ncc = torch.maximum(last_ncc, best_raw)
-                n_done = torch.clamp(done_itr, max=i)
-            return rot_out, xyz_out, n_done, traj, nccs, lrs, final_ncc
+                use_last = last_ncc >= st["best_raw"]
+                rot_out = torch.where(use_last[:, None], st["rot"], st["b_rot"])
+                xyz_out = torch.where(use_last[:, None], st["xyz"], st["b_xyz"])
+                final_ncc = torch.maximum(last_ncc, st["best_raw"])
+                n_done = torch.clamp(st["done_itr"], max=i)
+            return rot_out, xyz_out, n_done, *rec, final_ncc
+
+        def stage(rot, xyz, gt, density, lr_rot, lr_xyz):
+            if graphed:
+                return graphed_stage(rot, xyz, gt, density, lr_rot, lr_xyz)
+            # permute/cast the volume once per stage, outside the loop
+            packed = projector.pack_for_pallas(density) if use_pallas else None
+            prepared = projector.prepare_for_shearwarp(density) if use_fast else None
+            st, rec = fresh(rot, xyz, n_itr)
+            clock = _HostClock(warmup, rot.dtype)
+            i = 0
+            while running(i, st["n_plateaus"]):
+                st.update(iterate(st, rec, clock, gt, density, packed, prepared, lr_rot, lr_xyz))
+                clock.advance()
+                count("register.iterations")
+                i += 1
+            count("register.graph_replays", 0)
+            return finish(st, rec, i, gt, density, packed, prepared)
+
+        def graphed_stage(rot, xyz, gt, density, lr_rot, lr_xyz):
+            rows = max(_GRAPH_ROWS, 1 << max(n_itr - 1, 0).bit_length())
+            p = projector
+            with span("register.buffers"):  # the stage's start into the graph's buffers
+                prepared = p.prepare_for_shearwarp(density)
+                # the graph's key: everything its work reads but its buffers
+                key = (id(p.volume), p.detector, p.renderer, p.pallas_perm, p.shearwarp_grid,
+                       p.shearwarp_bounds, p.voxel_shift, tuple(rot.shape), tuple(gt.shape),
+                       rows, float(lr_rot), float(lr_xyz),
+                       (mncc_patch_size, gncc_patch_size, sigma, beta), self.equalize,
+                       parameterization, convention, patience, threshold, max_n_plateaus,
+                       warmup, (prepared.shape, prepared.dtype))
+
+                def make(volume_buffer):
+                    st, rec = fresh(rot, xyz, rows)
+                    buf = torch.empty_like(prepared) if volume_buffer is None else volume_buffer
+                    return _StageGraph(st, rec, _DeviceClock(rows, warmup, rot.dtype, rot.device),
+                                       torch.empty_like(gt), buf, p)
+
+                entry = self._stage_graph(key, make)
+                entry.load(*fresh(rot, xyz, rows), gt, prepared)
+                del prepared
+
+            def step(st, rec, clock, gt_, prepared_):
+                return iterate(st, rec, clock, gt_, density, None, prepared_, lr_rot, lr_xyz)
+
+            i = replays = 0
+            while running(i, entry.st["n_plateaus"]):
+                replays += entry.run(step)
+                count("register.iterations")
+                i += 1
+            count("register.graph_replays", replays)
+            out = finish(entry.st, entry.rec, i, gt, density, None, entry.prepared)
+            rot_out, xyz_out, n_done, traj, nccs, lrs, final_ncc = out
+            with span("register.buffers"):  # the records out of them
+                records = tuple(r[:n_itr].clone() for r in (traj, nccs, lrs))
+            return (rot_out, xyz_out, n_done, *records, final_ncc)
 
         return stage, transform
 
@@ -370,15 +617,16 @@ class RegistrarBase:
 
         -> (final_pose [K poses], params_rows, nccs, times, alphas — each a
         length-K list of per-image records)"""
-        rot, xyz = init_pose.convert(self.parameterization, self.convention)
-        K = gt.shape[0]
-        if rot.shape[0] != K:
-            raise ValueError(f"{rot.shape[0]} poses for {K} X-rays")
+        with span("register.prepare"):
+            rot, xyz = init_pose.convert(self.parameterization, self.convention)
+            K = gt.shape[0]
+            if rot.shape[0] != K:
+                raise ValueError(f"{rot.shape[0]} poses for {K} X-rays")
 
-        e_rot, e_xyz = init_pose.convert("euler_angles", "ZXY")
-        e0 = np.concatenate(
-            [_host(e_rot).reshape(K, -1)[:, :3], _host(e_xyz).reshape(K, -1)[:, :3]], axis=1
-        )
+            e_rot, e_xyz = init_pose.convert("euler_angles", "ZXY")
+            e0 = np.concatenate(
+                [_host(e_rot).reshape(K, -1)[:, :3], _host(e_xyz).reshape(K, -1)[:, :3]], axis=1
+            )
         params_rows = [[e0[k].tolist()] for k in range(K)]
         nccs: list[list[float]] = [[] for _ in range(K)]
         times: list[list[float]] = [[0.0] for _ in range(K)]
@@ -387,9 +635,10 @@ class RegistrarBase:
         step_size_scalar = 1.0
         final_ncc = None
         for stage_idx, (scale, n_itr) in enumerate(zip(scales, self.n_itrs), start=1):
-            proj = self.projector.rescale_detector(scale)
-            stage_fn, transform = self._make_stage(proj, n_itr, *imagesim_cfg)
-            gt_stage = transform(gt)
+            with span("register.prepare"):
+                proj = self.projector.rescale_detector(scale)
+                stage_fn, transform = self._make_stage(proj, n_itr, *imagesim_cfg)
+                gt_stage = transform(gt)
             step_size_scalar *= 2 ** (stage_idx - 1)
             lr_rot = self.lr_rot / step_size_scalar
             lr_xyz = self.lr_xyz / step_size_scalar
@@ -429,8 +678,9 @@ class RegistrarBase:
         fin = _host(final_ncc)
         for k in range(K):
             nccs[k].append(float(fin[k]))
-        final_pose = convert(rot, xyz, parameterization=self.parameterization,
-                             convention=self.convention)
+        with span("register.prepare"):
+            final_pose = convert(rot, xyz, parameterization=self.parameterization,
+                                 convention=self.convention)
         return final_pose, params_rows, nccs, times, alphas
 
     # ------------------------------------------------------------------
@@ -508,8 +758,9 @@ class RegistrarBase:
         intrinsics = dict(sdd=sdd, height=H, width=W, delx=delx, dely=dely, x0=-x0, y0=y0)
 
         scales = _parse_scales(self.scales, self.crop, H)
-        self.projector = self.projector.set_intrinsics(**intrinsics)
-        self._upgrade_renderer(scales, init_pose)
+        with span("register.prepare"):
+            self.projector = self.projector.set_intrinsics(**intrinsics)
+            self._upgrade_renderer(scales, init_pose)
 
         if self.init_only:
             return [
@@ -521,30 +772,32 @@ class RegistrarBase:
         t0 = time.perf_counter()
         imagesim_cfg = (mncc_patch_size, gncc_patch_size, sigma, beta)
         S = self.restart_seeds
-        gt_ms = torch.repeat_interleave(gt, S, dim=0) if S > 1 else gt
+        with span("register.prepare"):
+            gt_ms = torch.repeat_interleave(gt, S, dim=0) if S > 1 else gt
 
         def _seed_poses(base_pose, pass_idx, n_seeds=None, jitter_rot=None, jitter_xyz=None):
             """Seed k*S of each image is the unperturbed pose; the rest add
             one shared (n_seeds-1, 3) jitter table seeded by the pass index."""
-            n_seeds = S if n_seeds is None else n_seeds
-            jitter_rot = self.restart_jitter_rot if jitter_rot is None else jitter_rot
-            jitter_xyz = self.restart_jitter_xyz if jitter_xyz is None else jitter_xyz
-            e_rot, e_xyz = base_pose.convert("euler_angles", "ZXY")
-            rot_s = np.repeat(_host(e_rot).reshape(K, -1)[:, :3], n_seeds, axis=0)
-            xyz_s = np.repeat(_host(e_xyz).reshape(K, -1)[:, :3], n_seeds, axis=0)
-            if n_seeds > 1:
-                prng = np.random.default_rng(1000 + pass_idx)
-                jit = (np.arange(K * n_seeds) % n_seeds) != 0
-                j_rot = np.deg2rad(prng.uniform(-jitter_rot, jitter_rot, (n_seeds - 1, 3)))
-                j_xyz = prng.uniform(-jitter_xyz, jitter_xyz, (n_seeds - 1, 3))
-                rot_s[jit] += np.tile(j_rot, (K, 1))
-                xyz_s[jit] += np.tile(j_xyz, (K, 1))
-            host_sync(self.device, 2)
-            return convert(
-                torch.as_tensor(rot_s, dtype=torch.float32, device=self.device),
-                torch.as_tensor(xyz_s, dtype=torch.float32, device=self.device),
-                "euler_angles", "ZXY",
-            )
+            with span("register.seed"):
+                n_seeds = S if n_seeds is None else n_seeds
+                jitter_rot = self.restart_jitter_rot if jitter_rot is None else jitter_rot
+                jitter_xyz = self.restart_jitter_xyz if jitter_xyz is None else jitter_xyz
+                e_rot, e_xyz = base_pose.convert("euler_angles", "ZXY")
+                rot_s = np.repeat(_host(e_rot).reshape(K, -1)[:, :3], n_seeds, axis=0)
+                xyz_s = np.repeat(_host(e_xyz).reshape(K, -1)[:, :3], n_seeds, axis=0)
+                if n_seeds > 1:
+                    prng = np.random.default_rng(1000 + pass_idx)
+                    jit = (np.arange(K * n_seeds) % n_seeds) != 0
+                    j_rot = np.deg2rad(prng.uniform(-jitter_rot, jitter_rot, (n_seeds - 1, 3)))
+                    j_xyz = prng.uniform(-jitter_xyz, jitter_xyz, (n_seeds - 1, 3))
+                    rot_s[jit] += np.tile(j_rot, (K, 1))
+                    xyz_s[jit] += np.tile(j_xyz, (K, 1))
+                host_sync(self.device, 2)
+                return convert(
+                    torch.as_tensor(rot_s, dtype=torch.float32, device=self.device),
+                    torch.as_tensor(xyz_s, dtype=torch.float32, device=self.device),
+                    "euler_angles", "ZXY",
+                )
 
         def _select(r_nccs):
             """Per-image argmax over seeds; a jittered start must beat the
@@ -575,13 +828,14 @@ class RegistrarBase:
             )
             iters_pre = max(len(c_nccs[j]) - 1 for j in range(K * Sc))
             fin_c = np.asarray([c_nccs[j][-1] for j in range(K * Sc)]).reshape(K, Sc)
-            mats_c = _host(c_pose.matrix).reshape(K, Sc, 4, 4)
-            starts = np.empty((K, S, 4, 4), np.float32)
-            for k in range(K):
-                order = 1 + np.argsort(-fin_c[k, 1:])  # best jittered first
-                starts[k] = mats_c[k, [0] + order[: S - 1].tolist()]
-            pass1_starts = RigidTransform(torch.as_tensor(starts.reshape(K * S, 4, 4),
-                                                          device=self.device))
+            with span("register.seed"):
+                mats_c = _host(c_pose.matrix).reshape(K, Sc, 4, 4)
+                starts = np.empty((K, S, 4, 4), np.float32)
+                for k in range(K):
+                    order = 1 + np.argsort(-fin_c[k, 1:])  # best jittered first
+                    starts[k] = mats_c[k, [0] + order[: S - 1].tolist()]
+                pass1_starts = RigidTransform(torch.as_tensor(starts.reshape(K * S, 4, 4),
+                                                              device=self.device))
             if self.verbose > 0:
                 spread = "/".join(f"{fin_c[k].max() - fin_c[k, 0]:+.4f}" for k in range(K))
                 print(f"Coarse sweep ({Sc} seeds): best-vs-exact ncc {spread}", flush=True)
@@ -594,8 +848,9 @@ class RegistrarBase:
         )
         best_s, _ = _select(r_nccs)
         sel = np.arange(K) * S + best_s
-        host_sync(r_pose.matrix)  # the host's index, copied to the device
-        final_pose = RigidTransform(r_pose.matrix.reshape(K * S, 4, 4)[torch.as_tensor(sel)])
+        with span("register.seed"):
+            host_sync(r_pose.matrix)  # the host's index, copied to the device
+            final_pose = RigidTransform(r_pose.matrix.reshape(K * S, 4, 4)[torch.as_tensor(sel)])
         params, nccs, times, alphas = [], [], [], []
         for k in range(K):
             j = int(k * S + best_s[k])
@@ -615,12 +870,13 @@ class RegistrarBase:
             iters_run += max(len(r_nccs[j]) - 1 for j in range(K * S))
             improved = new_ncc > prev_ncc
             if improved.any():
-                mats = _host(final_pose.matrix).reshape(K, 4, 4).copy()
-                r_mats = _host(r_pose.matrix).reshape(K * S, 4, 4)
-                sel = np.arange(K) * S + best_s
-                mats[improved] = r_mats[sel[improved]]
-                host_sync(self.device)
-                final_pose = RigidTransform(torch.as_tensor(mats, device=self.device))
+                with span("register.seed"):
+                    mats = _host(final_pose.matrix).reshape(K, 4, 4).copy()
+                    r_mats = _host(r_pose.matrix).reshape(K * S, 4, 4)
+                    sel = np.arange(K) * S + best_s
+                    mats[improved] = r_mats[sel[improved]]
+                    host_sync(self.device)
+                    final_pose = RigidTransform(torch.as_tensor(mats, device=self.device))
                 for k in np.flatnonzero(improved):
                     # when the unperturbed seed wins, its row 0 repeats the
                     # trajectory's current tail: drop it

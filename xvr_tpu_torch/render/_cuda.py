@@ -15,11 +15,14 @@ a GPU or ``nvcc``.
 Each launch function checks device, dtype, shape and contiguity, allocates
 its outputs with ``torch.empty``, launches on the current CUDA stream,
 raises if the library reports a CUDA error, and adds one to its entry in
-:data:`LAUNCHES`.
+:data:`LAUNCHES`. Launches made while a CUDA graph is captured are taken
+back out (:func:`captured`) and added at each replay (:func:`replayed`), so
+the counts are of kernels run.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -53,6 +56,27 @@ BUILD_INFO: dict = {}
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+@contextlib.contextmanager
+def captured():
+    """Around a CUDA graph's capture: the launches counted inside were
+    recorded, not run. They are taken back out of :data:`LAUNCHES` on exit
+    and left in the yielded dict (kernel -> launches) for :func:`replayed`."""
+    before, taken = dict(LAUNCHES), {}
+    try:
+        yield taken
+    finally:
+        for k, n in LAUNCHES.items():
+            if n > before[k]:
+                taken[k] = n - before[k]
+                LAUNCHES[k] = before[k]
+
+
+def replayed(launches: dict) -> None:
+    """Count one replay of a graph whose capture launched ``launches``."""
+    for k, n in launches.items():
+        LAUNCHES[k] += n
 
 
 def _nvcc() -> str:

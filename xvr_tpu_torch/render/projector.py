@@ -40,8 +40,9 @@ def orientation_transform(orientation: str | None, dtype=torch.float32, device="
     """Camera-frame pre-rotation for anatomical orientation: identity for
     "AP" (and None), a 180 degree turn about x for "PA"."""
     if orientation == "PA":
-        diag = torch.tensor([1.0, -1.0, -1.0, 1.0], dtype=dtype, device=device)
-        return RigidTransform(torch.diag(diag))
+        flip = torch.eye(4, dtype=dtype, device=device)
+        flip.diagonal()[1:3] = -1.0  # made on the device: a render copies nothing from the host
+        return RigidTransform(flip)
     if orientation in (None, "AP"):
         return RigidTransform(torch.eye(4, dtype=dtype, device=device))
     raise ValueError(f"Unrecognized orientation {orientation!r}")

@@ -61,6 +61,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.device import device_constant
 from ..utils.profiling import host_sync
 from . import _cuda
 from .layout import _choose_permutation
@@ -369,9 +370,8 @@ def _decompose(affine_inverse, source, target, perm):
     s_vox = s_vox.expand(t_vox.shape)
     d_vox = t_vox - s_vox
     raylen = torch.linalg.norm(target - source.expand(target.shape), dim=-1)
-    order = list(perm)
-    host_sync(source, 2)  # each gather copies the index from the host
-    s_p, d_p = s_vox[..., order], d_vox[..., order]
+    order = device_constant(tuple(int(p) for p in perm), torch.int64, s_vox.device)
+    s_p, d_p = s_vox.index_select(-1, order), d_vox.index_select(-1, order)
     wscale = raylen / torch.clamp(torch.abs(d_p[..., 0]), min=1e-6)
     return s_p, d_p, wscale
 
