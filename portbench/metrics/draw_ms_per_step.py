@@ -1,0 +1,9 @@
+"""Host milliseconds per training step in the span ``train.draw`` (self time):
+the step's draws (``Trainer.draw``). From the program's spans over the
+traced window; the reader of every training cell without one of its own."""
+
+from portbench.spans import span_ms_per_step
+
+
+def read(ctx):
+    return span_ms_per_step(ctx, "train.draw")

@@ -41,8 +41,8 @@ TRAIN = dict(alphamin=165.0, alphamax=195.0, betamin=-15.0, betamax=15.0, gammam
              lr=1e-3, p_augmentation=0.5, seed=3)
 STAGE_SPANS = ("register.render", "register.similarity", "register.backward", "register.update",
                "register.exit_check")
-TRAIN_SPANS = ("train.draw", "train.render", "train.augment", "train.cnn", "train.loss",
-               "train.backward", "train.optim")
+TRAIN_SPANS = ("train.subject", "train.draw", "train.render", "train.augment", "train.cnn",
+               "train.loss", "train.backward", "train.optim")
 PARENTS = {"register.request": None, "register.read": "register.request",
            "register.prepare": "register.request", "register.seed": "register.request",
            "register.stage": "register.request", "register.save": None,

@@ -3,9 +3,10 @@
 On tests/test_train.py's tiny dataset (a 24^3 two-tissue sphere with a
 one-label core, 32^2 DRRs, ResNet-18, batch 3):
 
-* route parity: for the ranges of tests/test_train.py's strata, masked and
-  slab-fallback cases both packages pick the same renderer, alpha strata,
-  batch shares, permutations and label slab bounds;
+* route parity: for the ranges of tests/test_train.py's strata, masked,
+  slab-fallback and multi-subject cases both packages pick the same
+  renderer, alpha strata, batch shares, permutations and label slab bounds;
+  on a directory of CTs they pad alike and pick a subject by the same rule;
 * the train loop: logs, checkpoints with the optimizer state, the figure
   of target and predicted DRRs at step 0;
 * ``pad_volumes``.
@@ -62,6 +63,40 @@ def tiny_dataset(tmp_path_factory):
     return d
 
 
+DEPTHS = (16, 20, 24)
+
+
+@pytest.fixture(scope="module")
+def subjects_dataset(tmp_path_factory):
+    """A directory of three CTs and one of their labelmaps: the dataset's
+    sphere cut to 16, 20 and 24 slices about its centre (the affine moved so
+    that world geometry is kept), the core as label 1 and a block off centre
+    as label 2, which the first subject lacks."""
+    d = tmp_path_factory.mktemp("subjects")
+    (d / "volumes").mkdir()
+    (d / "masks").mkdir()
+    n = 24
+    c = (n - 1) / 2
+    idx = np.arange(n)
+    X, Y, Z = np.meshgrid(idx, idx, idx, indexing="ij")
+    r2 = (X - c) ** 2 + (Y - c) ** 2 + (Z - c) ** 2
+    hu = np.where(r2 <= (n / 3) ** 2, 200.0, -1000.0).astype(np.float32)
+    hu += np.where(r2 <= (n / 6) ** 2, 800.0, 0.0)
+    block = (abs(X - 19) <= 2) & (abs(Y - 5) <= 2) & (abs(Z - c) <= 3)
+    hu += np.where(block, 400.0, 0.0)
+    for i, depth in enumerate(DEPTHS):
+        z0 = (n - depth) // 2
+        affine = np.eye(4) * 4.0
+        affine[3, 3] = 1.0
+        affine[:3, 3] = -c * 4.0
+        affine[2, 3] += 4.0 * z0
+        mask = np.where(block & (i > 0), 2.0, np.where(r2 <= (n / 6) ** 2, 1.0, 0.0))
+        cut = slice(z0, z0 + depth)
+        save_nifti(d / "volumes" / f"s{i}.nii.gz", hu[:, :, cut], affine)
+        save_nifti(d / "masks" / f"s{i}.nii.gz", mask[:, :, cut].astype(np.float32), affine)
+    return d
+
+
 def _kwargs(tiny_dataset, outdir, **kw):
     out = dict(volpath=tiny_dataset / "volume.nii.gz", maskpath=None, outpath=outdir,
                sdd=400.0, height=32, delx=4.0, model_name="resnet18", batch_size=3,
@@ -88,19 +123,30 @@ def _jax_route(tj):
     )
 
 
+def _subjects_route(t):
+    """Per subject, per stratum: renderer, permutation, label slab bounds."""
+    return [[(p.renderer, p.pallas_perm, p.shearwarp_bounds) for p in tup] for tup in t.projectors]
+
+
 @pytest.mark.parametrize("case", ["single", "masked", "wide", "wide_masked", "slab", "slab_masked",
-                                  "siddon", "siddon_exact"])
-def test_route_matches_jax(tiny_dataset, tmp_path, monkeypatch, case):
+                                  "siddon", "siddon_exact", "subjects"])
+def test_route_matches_jax(tiny_dataset, subjects_dataset, tmp_path, monkeypatch, case):
     """Renderer, strata edges and shares, permutations and label slab
     bounds. The slab cases: on one subject no ranges make every shear-warp
     candidate decline while the slab gate accepts (the slab gate is the
     stricter on the same probes), so the JAX trainer's strata are declined
-    by hand in both packages."""
+    by hand in both packages. The subjects case: a directory of three CTs
+    of different depths with their labelmaps, one without a label the others
+    have; the labels are the union over the subjects, every subject takes
+    the one permutation, and the label slab bounds are unified over them.
+    There the padded volumes, labelmaps and isocentres agree exactly."""
     kw = {}
     if "wide" in case:
         kw = dict(WIDE, batch_size=8)
     if "masked" in case:
         kw["maskpath"] = tiny_dataset / "mask.nii.gz"
+    if case == "subjects":
+        kw = dict(volpath=subjects_dataset / "volumes", maskpath=subjects_dataset / "masks")
     if case.startswith("slab"):
         monkeypatch.setattr(jtrainer.Trainer, "_try_shearwarp_strata", lambda self, edges: False)
         monkeypatch.setattr(Trainer, "_try_shearwarp_strata", lambda self, edges: False)
@@ -113,8 +159,9 @@ def test_route_matches_jax(tiny_dataset, tmp_path, monkeypatch, case):
     expect = {"single": "trilinear_fast", "masked": "trilinear_fast", "wide": "trilinear_fast",
               "wide_masked": "trilinear_fast", "slab": "trilinear_pallas",
               "slab_masked": "trilinear_pallas", "siddon": "siddon_fast",
-              "siddon_exact": "siddon"}[case]
+              "siddon_exact": "siddon", "subjects": "trilinear_fast"}[case]
     assert ours["renderer"] == expect
+    assert _subjects_route(tt) == _subjects_route(tj)
     assert {k: v for k, v in tt.config.items() if k != "outpath"} == \
         {k: v for k, v in tj.config.items() if k != "outpath"}
     if "wide" in case:
@@ -122,6 +169,38 @@ def test_route_matches_jax(tiny_dataset, tmp_path, monkeypatch, case):
         assert len({s["perm"] for s in ours["strata"]}) >= 2
     if case == "masked":
         assert ours["strata"][0]["bounds"][1][1] - ours["strata"][0]["bounds"][1][0] < 24
+    if case == "subjects":
+        assert ours["labels"] == (1, 2) and len(tt.projectors) == len(DEPTHS)
+        assert len({p.pallas_perm for tup in tt.projectors for p in tup}) == 1
+        assert tt.subject_shapes == [(24, 24, d) for d in DEPTHS]
+        for vj, vt, cj, ct in zip(tj.volumes, tt.volumes, tj.centers, tt.centers):
+            assert vt.shape == (24, 24, 24)
+            np.testing.assert_array_equal(vt.data.numpy(), np.asarray(vj.data))
+            np.testing.assert_array_equal(vt.mask.numpy(), np.asarray(vj.mask))
+            np.testing.assert_allclose(vt.affine.numpy(), np.asarray(vj.affine), atol=1e-6)
+            np.testing.assert_allclose(np.asarray(ct), np.asarray(cj), atol=1e-5)
+        assert 2 not in np.unique(tt.volumes[0].mask.numpy())
+
+
+def test_subject_pick_rule_matches_jax(subjects_dataset, tmp_path, monkeypatch):
+    """Both packages pick a subject by NumPy's ``choice`` over the
+    normalized subject weights from a seed: the JAX trainer seeds a
+    generator from its step key's bits, the port draws from its own
+    generator, seeded once. Given the same seed, both pick the same
+    subject, uniformly or weighted."""
+    import jax
+
+    tj, tt = _both(subjects_dataset, tmp_path, monkeypatch, volpath=subjects_dataset / "volumes",
+                   maskpath=None)
+    for weights in (None, [1.0, 2.0, 5.0]):
+        tj.subject_weights = tt.subject_weights = weights
+        picks = []
+        for k in range(16):
+            key = jax.random.PRNGKey(k)
+            tt.rng = np.random.default_rng(int(jax.random.bits(key)))
+            picks.append(tt._pick_subject())
+            assert picks[-1] == tj._pick_subject(key)
+        assert len(set(picks)) == len(DEPTHS)
 
 
 def test_pad_volumes_and_train_loop(tiny_dataset, tmp_path, monkeypatch):

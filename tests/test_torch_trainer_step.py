@@ -37,7 +37,7 @@ from xvr_tpu.train import xray_augmentations as j_aug
 from xvr_tpu_torch.state import from_flax_params, to_flax_params
 
 from test_torch_train import jax_aug_draws
-from test_torch_trainer import _both, _jax_route, tiny_dataset  # noqa: F401
+from test_torch_trainer import _both, _jax_route, subjects_dataset, tiny_dataset  # noqa: F401
 
 
 @pytest.fixture(autouse=True)
@@ -78,14 +78,12 @@ def _jax_draws(tj, key):
     return pose, contrast, keys[1]
 
 
-def _jax_loss_and_grads(tj, pose_m, contrast, k_aug):
-    """The JAX step of Trainer._build_step, from its public pieces, without
-    the optimizer."""
-    projectors, center = tj.projectors[0], tj.centers[0]
+def _jax_render_fn(tj, subject, density):
+    """The JAX step's render of ``subject`` at a pose batch, stratum by
+    stratum, from its public pieces."""
+    projectors = tj.projectors[subject]
     counts = tj.strata_counts
     offsets = np.concatenate([[0], np.cumsum(counts)])
-    pose = JRigidTransform(pose_m).compose(j_make_translation(center))
-    density = j_hu_to_density(projectors[0].volume.data, contrast)
     packed = [p.pack_for_pallas(density) if p.renderer == "trilinear_pallas" else None
               for p in projectors]
     prepared = [p.prepare_for_shearwarp(density) if p.renderer.endswith(("_fast", "_shearwarp"))
@@ -100,6 +98,14 @@ def _jax_loss_and_grads(tj, pose_m, contrast, k_aug):
             imgs.append(proj.reshape_transform(raw, int(counts[k])))
         return jnp.concatenate(imgs) if len(imgs) > 1 else imgs[0]
 
+    return render
+
+
+def _jax_loss_and_grads(tj, pose_m, contrast, k_aug):
+    """The JAX step of Trainer._build_step, from its public pieces, without
+    the optimizer."""
+    pose = JRigidTransform(pose_m).compose(j_make_translation(tj.centers[0]))
+    render = _jax_render_fn(tj, 0, j_hu_to_density(tj.projectors[0][0].volume.data, contrast))
     raw = jax.lax.stop_gradient(render(pose))
     fg = (raw > 0).astype(raw.dtype)
     img = jnp.sum(raw, axis=1, keepdims=True)
@@ -184,3 +190,36 @@ def test_step_matches_jax(tiny_dataset, tmp_path, monkeypatch, masked):
     sq = sum(float(((mine[k].astype(np.float64) - ref) ** 2).sum()) for k, ref in jp.items())
     n = sum(ref.size for ref in jp.values())
     assert np.sqrt(sq / n) <= 1e-3 * 0.15, np.sqrt(sq / n)
+
+
+def test_target_renders_of_each_subject_match_jax(subjects_dataset, tmp_path, monkeypatch):
+    """A directory of three CTs of different depths with their labelmaps
+    (tests/test_torch_trainer.py): at one step's JAX draws, the port's step
+    on each subject renders the same targets (the background and both label
+    channels) as the JAX step's render of that subject, padded alike. Held
+    to tests/test_torch_channels.py's tolerances: rtol 2e-2 and 2e-3 of
+    the largest value (the JAX package's bf16 accumulate)."""
+    tj, tt = _both(subjects_dataset, tmp_path, monkeypatch, volpath=subjects_dataset / "volumes",
+                   maskpath=subjects_dataset / "masks", p_augmentation=0.0)
+    pose_m, contrast, k_aug = _jax_draws(tj, jax.random.PRNGKey(5))
+    draws = _port_draws(tt, pose_m, contrast, k_aug)
+    render_batch = tt.render_batch
+
+    class Target(Exception):
+        """The step's first render, its target, ending the step there."""
+
+    def target(*a, **kw):
+        raise Target(render_batch(*a, **kw))
+
+    tt.render_batch = target
+    for s in range(len(tt.projectors)):
+        with pytest.raises(Target) as got:
+            tt.loss_and_grads(tt.projectors[s], tt.centers[s], draws)
+        got = got.value.args[0].numpy()
+        pose = JRigidTransform(pose_m).compose(j_make_translation(tj.centers[s]))
+        render = _jax_render_fn(tj, s, j_hu_to_density(tj.projectors[s][0].volume.data, contrast))
+        ref = np.asarray(render(pose))
+        assert got.shape == ref.shape and got.shape[1] == 3
+        assert (ref[:, 2].max() > 0) == (s > 0), s  # the first subject lacks label 2
+        np.testing.assert_allclose(got, ref, rtol=2e-2, atol=2e-3 * np.abs(ref).max(),
+                                   err_msg=f"subject {s}")

@@ -46,7 +46,7 @@ from ..render.projector import Projector
 from ..render.volume import Volume, transform_hu_to_density
 from ..state import from_flax_params, to_flax_params
 from ..utils.itk import get_4x4
-from ..utils.profiling import span
+from ..utils.profiling import count, span
 from ..utils.transforms import make_xray_transforms
 from .augmentations import apply_augmentations, draw_augmentations
 from .checkpoint import latest_checkpoint, load_checkpoint, save_checkpoint
@@ -170,7 +170,11 @@ class Trainer:
         # ---- subjects ----
         self.subject_weights = weights
         self.patch_size = tuple(int(x) for x in patch_size) if patch_size is not None else None
-        self.volumes, self.single_subject = self._initialize_subjects(volpath, maskpath, orientation)
+        # each subject's own shape, before pad_volumes: what of a march is padding
+        self.volumes, self.subject_shapes = self._initialize_subjects(volpath, maskpath,
+                                                                      orientation)
+        self.single_subject = len(self.volumes) == 1
+        self._last_subject = None
 
         # ---- projectors: one per subject, then one per stratum ----
         labels = None
@@ -377,9 +381,11 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def _initialize_subjects(self, volpath, maskpath, orientation):
+        """-> (the subjects padded to one shape, each subject's own shape)."""
         volpath = Path(volpath)
         if volpath.is_file():
-            return [read(volpath, maskpath, orientation=orientation, device=self.device)], True
+            vol = read(volpath, maskpath, orientation=orientation, device=self.device)
+            return [vol], [vol.shape]
         vols = sorted(p for p in volpath.glob("[!.]*.nii*"))
         if not vols:
             raise FileNotFoundError(f"No volumes found in {volpath}")
@@ -387,7 +393,7 @@ class Trainer:
                  else [None] * len(vols))
         subjects = [read(v, m, orientation=orientation, device=self.device)
                     for v, m in zip(vols, masks)]
-        return pad_volumes(subjects), len(subjects) == 1
+        return pad_volumes(subjects), [v.shape for v in subjects]
 
     # ------------------------------------------------------------------
     # the step
@@ -490,7 +496,8 @@ class Trainer:
         """One step on given draws: gradients, then the optimizer."""
         loss, metrics, grads = self.loss_and_grads(projectors, center, draws)
         with span("train.optim"):
-            self.tx.step(self.params, grads, self.opt_state)
+            if self.tx.step(self.params, grads, self.opt_state):
+                count("train.updates")
         metrics["loss"] = loss
         return metrics
 
@@ -503,7 +510,8 @@ class Trainer:
 
     def _crop_patch(self, projectors: tuple):
         """A random fixed-size crop of the subject volume, its affine shifted
-        so that world geometry is kept; the same crop for every stratum."""
+        so that world geometry is kept; the same crop for every stratum.
+        -> (projectors, centre, the crop's slices of the padded grid)."""
         ph, pw, pd = self.patch_size
         vol = projectors[0].volume
         nx, ny, nz = vol.shape
@@ -517,14 +525,37 @@ class Trainer:
         offset = torch.tensor([ox, oy, oz], dtype=affine.dtype, device=affine.device)
         affine[:3, 3] += vol.affine[:3, :3] @ offset
         cropped = Volume(data=data, affine=affine, mask=mask, orientation=vol.orientation)
-        return tuple(p.replace(volume=cropped, density=data) for p in projectors), cropped.center
+        projectors = tuple(p.replace(volume=cropped, density=data) for p in projectors)
+        return projectors, cropped.center, sl
+
+    def _count_subject(self, idx: int, box) -> None:
+        """Count the voxels the step marches (``box``: the slices of the
+        padded grid it renders), those of them that are padding, and a
+        change of subject from the step before; from shapes on the host."""
+        own = self.subject_shapes[idx]
+        n = [s.stop - s.start for s in box]
+        real = [max(0, min(s.stop, m) - s.start) for s, m in zip(box, own)]
+        count("train.volume_voxels", math.prod(n))
+        count("train.pad_voxels", math.prod(n) - math.prod(real))
+        if self._last_subject is not None and idx != self._last_subject:
+            count("train.subject_switches")
+        self._last_subject = idx
 
     def step(self, itr: int) -> dict:
+        """One training step on a subject picked from the trainer's own
+        generator. Counters: ``train.volume_voxels`` and ``train.pad_voxels``
+        (the subject's voxels marched, and those that are padding),
+        ``train.subject_switches`` and ``train.updates`` (optimizer steps
+        that moved the parameters)."""
         with span("train.step", request=True):
-            idx = self._pick_subject()
-            projectors, center = self.projectors[idx], self.centers[idx]
-            if self.patch_size is not None:
-                projectors, center = self._crop_patch(projectors)
+            with span("train.subject"):
+                idx = self._pick_subject()
+                projectors, center = self.projectors[idx], self.centers[idx]
+                if self.patch_size is not None:
+                    projectors, center, box = self._crop_patch(projectors)
+                else:
+                    box = [slice(0, n) for n in self.volumes[idx].shape]
+                self._count_subject(idx, box)
             with span("train.draw"):
                 draws = self.draw()
             return self.train_step(projectors, center, draws)
