@@ -36,7 +36,11 @@ Phases (each prints one or more lines; any failure exits non-zero):
              on 8 images and timed on all; then each kernel's device time
              from torch.profiler at every shape, and that of grid_sample,
              K2/K3's library yardstick, beside K2's and K3's each profiled
-             alone as grid_sample is
+             alone as grid_sample is; the rays' pose adjoint (rays_adjoint)
+             at the same four shapes on a render's own ray cotangent,
+             against its plain version in float64, eleven calls
+             bit-identical, its times beside its byte bound and beside the
+             batched GEMM it replaces (library)
 4. slices    GT render; the shear-warp and slab registrations, each with the
              launch counts of its own run and its mTRE; the label and Siddon
              renders, each with its launch counts (and pack_labels' time per
@@ -112,8 +116,10 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
+F64_FLOPS = 34e12  # H100 SXM float64 outside the tensor cores
 SW_SOURCE = "xvr_tpu_torch/csrc/shearwarp.cu"
 SLAB_SOURCE = "xvr_tpu_torch/csrc/slab.cu"
+RAYS_SOURCE = "xvr_tpu_torch/csrc/rays.cu"
 REPLACES = {
     "sw_accumulate": "xvr_tpu/render/shearwarp.py:222",
     "sw_warp": "xvr_tpu/render/shearwarp.py:368",
@@ -123,6 +129,7 @@ REPLACES = {
     "slab_backward": "xvr_tpu/render/pallas.py:485",
     "slab_channels": "xvr_tpu/render/pallas.py:324",
     "slab_siddon": "xvr_tpu/render/pallas.py:200",
+    "rays_adjoint": "none (XLA's product of the rays' pose gradient)",
 }
 # device kernels each wrapper launches, for the profiler's per-kernel times
 DEVICE_KERNELS = {
@@ -134,6 +141,7 @@ DEVICE_KERNELS = {
     "slab_backward": ("slab_backward_kernel",),
     "slab_channels": ("slab_channels_kernel",),
     "slab_siddon": ("slab_siddon_kernel",),
+    "rays_adjoint": ("rays_adjoint_kernel", "rays_adjoint_sum_kernel"),
 }
 # f32 operations per evaluated (ray, plane) pair, counted from slab.cu:
 # arithmetic, min/max, abs, floor and rint, a fused multiply-add as 2;
@@ -689,6 +697,69 @@ def phase_kernels(projector, pose16, pose4, time_ms=cuda_time_ms):
             records.setdefault(name, []).append(rec)
     _cuda.reset_launches()
     return records, calls
+
+
+def rays_cotangent(proj, pose, seed: int):
+    """The rays' cotangent as the registrar's backward hands it to the pose:
+    one fast render of ``pose`` through ``proj`` (a pyramid stage's
+    projector) under a random image cotangent, back to its ray targets.
+    -> (g (B, R, 3), the detector's shared points q (R, 3))."""
+    import torch
+
+    src, tgt = proj.rays(pose)
+    tgt = tgt.detach().requires_grad_(True)
+    img = proj.render_rays(src.detach(), tgt)
+    gen = torch.Generator(device=img.device).manual_seed(seed)
+    w = torch.randn(img.shape, generator=gen, device=img.device)
+    (g,) = torch.autograd.grad((img * w).sum(), tgt)
+    return g.contiguous(), proj.detector._target_grid(g.dtype, g.device)
+
+
+def phase_rays_adjoint(projector, pose16, pose4, time_ms=cuda_time_ms):
+    """``rays_adjoint`` at the shapes of :func:`stage_cases` against its
+    plain version in float64 of the same float32 inputs, to 1e-6 of each
+    pose's largest entry (its double sums round once, to float32); REPEATS
+    more calls bit-identical; CUDA-event times of the kernel, of its plain
+    version and of the batched GEMM autograd ran in its place (library),
+    beside its bound: B R 3 + R 3 floats read, 21 float64 operations per
+    (ray, pose). Nothing here runs the profiler: profiling this early makes a
+    later profile lose K1's records (main's loop profiles the kernel).
+    -> (records, one dict of calls per shape for the profiler)."""
+    import torch
+    from xvr_tpu_torch.geometry.se3 import _shared_adjoint_plain
+    from xvr_tpu_torch.render import _cuda
+
+    name, records, calls = "rays_adjoint", [], []
+    for label, pose, scale in stage_cases(projector, pose16, pose4):
+        proj = projector.rescale_detector(scale)
+        det = (proj.detector.height, proj.detector.width)
+        g, q = rays_cotangent(proj, pose, seed=1)
+        B, R, _ = g.shape
+        tag = f"{label} det {det[0]}x{det[1]}"
+        got = _cuda.rays_adjoint(g, q)
+        ref = _shared_adjoint_plain(g.double(), q.double())
+        per_pose = ref.abs().amax(dim=(-1, -2), keepdim=True)
+        err = check(name, got.double() / per_pose, ref / per_pose, tag, 1e-6)
+        same_bits(name, got, lambda: _cuda.rays_adjoint(g, q), tag)
+        gemm = partial(torch.bmm, q.expand(B, R, 3).transpose(1, 2), g)
+        calls.append({name: partial(_cuda.rays_adjoint, g, q)})
+        ms = time_ms(lambda: _cuda.rays_adjoint(g, q), 20)
+        plain_ms = time_ms(lambda: _shared_adjoint_plain(g, q), 20)
+        lib_ms = time_ms(gemm, 20)
+        nbytes, nops = (B * R * 3 + R * 3 + B * 16) * 4, 21 * B * R
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, nops / F64_FLOPS * 1e3
+        rec = dict(name=name, route="cuda", source=RAYS_SOURCE, replaces=REPLACES[name],
+                   launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                   bound_ms=max(t_bytes, t_ops),
+                   bound_by="bytes" if t_bytes >= t_ops else "operations",
+                   library_ms=lib_ms, shape=f"B={B} det={det[0]}x{det[1]}", B=B, det=det[0])
+        log(f"  time {name} [{rec['shape']}]: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"library (bmm [B, 3, R] x [B, R, 3]) {lib_ms:.4f} ms, "
+            f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}: {nbytes / 1e6:.2f} MB, "
+            f"{nops / 1e6:.1f} M float64 operations)")
+        records.append(rec)
+    _cuda.reset_launches()
+    return {name: records}, calls
 
 
 def slab_pairs(vol_shape, fields) -> tuple[int, int]:
@@ -1658,7 +1729,7 @@ def phase_entry_points(workdir: Path, gt_pose, fids, card: str, dev="cuda", kern
     from xvr_tpu_torch.io import dcmread, dcmwrite, parse_dicom_pose, pixel_array, read_xray
     from xvr_tpu_torch.models.inference import predict_pose
 
-    kernels = SW_KERNELS if kernels is None else kernels
+    kernels = REGISTER_SW if kernels is None else kernels
     xray, ct = workdir / "xray.dcm", str(workdir / "ct.nii.gz")
     gt_np = gt_pose.matrix[0].cpu().numpy()
     base = ["-v", ct, "--device", dev, "--crop", str(crop)]
@@ -1749,6 +1820,10 @@ def phase_entry_points(workdir: Path, gt_pose, fids, card: str, dev="cuda", kern
 
 SW_KERNELS = ("sw_accumulate", "sw_warp", "sw_warp_grads", "sw_accumulate_adjoint")
 SLAB_PATH = ("slab_forward", "slab_backward")
+# a registration's pose gradient runs back through the detector rays
+# (geometry/se3.py transform_shared), once an iteration whatever the renderer
+REGISTER_SW = (*SW_KERNELS, "rays_adjoint")
+REGISTER_SLAB = (*SLAB_PATH, "rays_adjoint")
 
 
 def stage_gaps(records, sw_stats, slab_stats, launches):
@@ -1759,7 +1834,7 @@ def stage_gaps(records, sw_stats, slab_stats, launches):
     shape. -> name -> (gap ms or None without device times, iterations)."""
     out = {}
     for name, recs in records.items():
-        stats = sw_stats if name in SW_KERNELS else slab_stats if name in SLAB_PATH else None
+        stats = sw_stats if name in REGISTER_SW else slab_stats if name in SLAB_PATH else None
         if stats is None:
             rec = recs[-1]
             runs = [(launches[name], rec)]
@@ -1835,15 +1910,16 @@ def foundation_checkpoint(path, ranges=None, config=MODEL_CONFIG, seed=0, head_s
 def route_launches(route) -> dict:
     """Launches per training step that a route implies: per stratum, the
     target render and the re-render (K1 per channel, K2 over the fold) and
-    the backward of the re-render (K3 over the fold, K4 per channel); the
-    slab route K5 (K7 masked) twice and K6 once."""
+    the backward of the re-render (K3 over the fold, K4 per channel, and
+    the rays' pose adjoint back to the CNN's predicted poses); the slab route
+    K5 (K7 masked) twice, K6 once and the rays' adjoint once."""
     C = 1 + len(route["labels"] or ())
     K = len(route["strata"])
     if route["renderer"] == "trilinear_pallas":
         fwd = "slab_channels" if route["labels"] else "slab_forward"
-        return {fwd: 2, "slab_backward": 1}
+        return {fwd: 2, "slab_backward": 1, "rays_adjoint": 1}
     return {"sw_accumulate": 2 * K * C, "sw_warp": 2 * K, "sw_warp_grads": K,
-            "sw_accumulate_adjoint": K * C}
+            "sw_accumulate_adjoint": K * C, "rays_adjoint": K}
 
 
 class watched_training:
@@ -2742,7 +2818,7 @@ def read_csv(path):
     return [dict(zip(lines[0].split(","), line.split(","))) for line in lines[1:]]
 
 
-def phase_workflows(workdir: Path, hu, aff, fids, card, dev="cuda", kernels=SW_KERNELS, det=1436):
+def phase_workflows(workdir: Path, hu, aff, fids, card, dev="cuda", kernels=REGISTER_SW, det=1436):
     """The published DeepFluoro runs of scripts/torch, in process, on one
     subject (write_deepfluoro_subject; two X-rays of the whole CT, the only
     cut): the xvr-torch line of deepfluoro/register/finetuned.sh (1436^2
@@ -2938,6 +3014,10 @@ def main() -> int:
     if slab_proj.renderer != "trilinear_pallas":
         raise AssertionError(f"with_pallas declined the bench poses: {slab_proj.renderer}")
     records, sw_calls = phase_kernels(sw_proj, pose16, pose4)
+    rays_records, rays_calls = phase_rays_adjoint(sw_proj, pose16, pose4)
+    records.update(rays_records)
+    for calls, more in zip(sw_calls, rays_calls):
+        calls.update(more)
     edge_errs = phase_edge_kernels(sw_proj.prepare_for_shearwarp())
     edge_errs.update(phase_edge_slab())
     slab_records, slab_calls = phase_slab_kernels(slab_proj, pose16, pose4, vol.mask)
@@ -2970,9 +3050,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="xvr_chip_smoke_") as tmp:
         workdir = Path(tmp)
         gt_pose, gt_proj, gt_img = write_scene(workdir, hu, aff)
-        sw_launches, sw_stats = register(workdir, gt_pose, fids, "trilinear_fast", SW_KERNELS)
+        sw_launches, sw_stats = register(workdir, gt_pose, fids, "trilinear_fast", REGISTER_SW)
         slab_launches, slab_stats = register(workdir, gt_pose, fids, "trilinear_pallas",
-                                             SLAB_PATH, no_shearwarp=True)
+                                             REGISTER_SLAB, no_shearwarp=True)
         # 5. the entry points, in the same scene
         entry_launches, entry_stats = phase_entry_points(workdir, gt_pose, fids, smi)
         # 6. training: train masked and unmasked, and restart, through the CLI
@@ -2982,7 +3062,7 @@ def main() -> int:
         # 8. the dataset workflows: scripts/torch's DeepFluoro register and evaluate runs
         wf_launches, wf_stats = phase_workflows(workdir, hu, aff, fids, smi)
     render_launches, render_stats = label_and_siddon_renders(vol, gt_pose, gt_proj, gt_img, pose4)
-    launches = {**{k: sw_launches[k] for k in sw_launches if k.startswith("sw_")},
+    launches = {**{k: sw_launches[k] for k in REGISTER_SW},
                 "slab_forward": slab_launches["slab_forward"],
                 "slab_backward": slab_launches["slab_backward"], **render_launches}
 
@@ -2998,7 +3078,7 @@ def main() -> int:
         rec = dict(recs[-1])
         rec["launches"] = launches[name]
         rec["launches_workflows"] = wf_launches[name]
-        if name in SW_KERNELS:
+        if name in REGISTER_SW:
             rec["launches_register_model"] = entry_launches[name]
         rec["max_abs_err"] = max([r["max_abs_err"] for r in recs] + [workflow_errs.get(name, 0.0)])
         if name in workflow_errs:
@@ -3016,7 +3096,7 @@ def main() -> int:
             rec["trainer"] = {k: trainer[name].get(k) for k in (
                 "shape", "ms", "profiler_ms", "plain_ms", "bound_ms", "bound_by",
                 "bound_ms_full_plane_ops", "max_abs_err")}
-        if name in SW_KERNELS:
+        if name in REGISTER_SW:
             # phase 7's mesh paths, each counted over its own run
             rec["launches_sharded_registration"] = rest_stats["sharded_registration"]["launches"][name]
             rec["launches_sharded_train_step"] = rest_stats["sharded_training"]["launches_per_step"].get(

@@ -207,7 +207,8 @@ def test_warp_plans_give_identical_bits(cuda):
 
 
 def test_fast_render_launches_every_kernel(cuda):
-    """A fast render and its backward go through K1-K4, and only there."""
+    """A fast render and its backward go through K1-K4, and the pose
+    gradient of the rays through ``rays_adjoint``, and only there."""
     from xvr_tpu_torch.geometry import Detector, convert
     from xvr_tpu_torch.render import _cuda, raymarch_trilinear_fast
 
@@ -225,7 +226,8 @@ def test_fast_render_launches_every_kernel(cuda):
     img = raymarch_trilinear_fast(density, affinv, src, tgt)
     (img**2).sum().backward()
     torch.cuda.synchronize()
-    assert all(v == int(k.startswith("sw_")) for k, v in _cuda.LAUNCHES.items()), _cuda.LAUNCHES
+    assert all(v == int(k.startswith("sw_") or k == "rays_adjoint")
+               for k, v in _cuda.LAUNCHES.items()), _cuda.LAUNCHES
     assert torch.isfinite(img).all() and torch.isfinite(rot.grad).all()
     assert float(rot.grad.abs().sum()) > 0
 
@@ -366,7 +368,7 @@ def test_slab_render_launches_its_kernels(cuda):
         sid = raymarch_siddon_pallas(density, affinv, src, tgt)
     torch.cuda.synchronize()
     want = dict.fromkeys(_cuda.LAUNCHES, 0)
-    want.update(slab_forward=1, slab_backward=2, slab_channels=1, slab_siddon=1)
+    want.update(slab_forward=1, slab_backward=2, slab_channels=1, slab_siddon=1, rays_adjoint=1)
     assert _cuda.LAUNCHES == want
     assert torch.isfinite(img).all() and torch.isfinite(sid).all()
     assert float(rot.grad.abs().sum()) > 0
@@ -390,7 +392,7 @@ def test_fast_render_slab_backward_launches_k6(cuda):
     (raymarch_trilinear_fast(density, affinv, src, tgt, backward="slab") ** 2).sum().backward()
     torch.cuda.synchronize()
     want = dict.fromkeys(_cuda.LAUNCHES, 0)
-    want.update(sw_accumulate=1, sw_warp=1, slab_backward=1)
+    want.update(sw_accumulate=1, sw_warp=1, slab_backward=1, rays_adjoint=1)
     assert _cuda.LAUNCHES == want
     assert float(rot.grad.abs().sum()) > 0
 
@@ -508,8 +510,8 @@ def test_resnet34_forward_matches_cpu(cuda):
 
 def test_register_entry_points_on_the_card(cuda, tmp_path):
     """chip_smoke.py's phase 5 on a 64^3 phantom and a 356^2 X-ray: ``register
-    model`` from a ResNet-34 checkpoint launches K1-K4 and no other kernel
-    and ends under 1 mm; ``register restart`` and ``register dicom`` start
+    model`` from a ResNet-34 checkpoint launches K1-K4 and the rays' pose
+    adjoint and no other kernel, and ends under 1 mm; ``register restart`` and ``register dicom`` start
     from the bundle's and the positioner's poses."""
     smoke = _smoke()
     hu, aff, fids = smoke.build_phantom(64)
@@ -571,8 +573,8 @@ def test_trainer_slab_fallback_on_the_card(cuda, tmp_path, monkeypatch, masked):
     route = tr.route()
     assert route["renderer"] == "trilinear_pallas"
     expect = _smoke().route_launches(route)
-    assert expect == ({"slab_channels": 2, "slab_backward": 1} if masked
-                      else {"slab_forward": 2, "slab_backward": 1})
+    assert expect == ({"slab_channels": 2, "slab_backward": 1, "rays_adjoint": 1} if masked
+                      else {"slab_forward": 2, "slab_backward": 1, "rays_adjoint": 1})
     for itr in range(2):
         _cuda.reset_launches()
         m = tr.step(itr)
@@ -684,7 +686,7 @@ def test_mesh_training_step_on_the_card_matches_unsharded(cuda, tmp_path, monkey
     C = 1 + len(tr.labels)
     assert {k: v for k, v in _cuda.LAUNCHES.items() if v} == {
         "sw_accumulate": 2 * 2 * C, "sw_warp": 2 * 2, "sw_warp_grads": 2,
-        "sw_accumulate_adjoint": 2 * C}
+        "sw_accumulate_adjoint": 2 * C, "rays_adjoint": 2}
 
 
 # ---------------------------------------------------------------------------
@@ -728,6 +730,7 @@ def test_masked_linearized_register_model_matches_the_cpu(cuda, tmp_path, monkey
     import functools
 
     from xvr_tpu_torch.cli import main
+    from xvr_tpu_torch.geometry.se3 import _shared_adjoint_plain
     from xvr_tpu_torch.render import _cuda
     from xvr_tpu_torch.render import shearwarp as sw
 
@@ -769,6 +772,8 @@ def test_masked_linearized_register_model_matches_the_cpu(cuda, tmp_path, monkey
             m.setattr(torch.autograd, "grad", first_grad(run))
             for name, fn in plain.items() if run == "cuda_plain" else ():
                 m.setattr(sw, name, fn)
+            if run == "cuda_plain":
+                m.setattr(_cuda, "rays_adjoint", _shared_adjoint_plain)
             assert main(["register", "model", str(sub / "xrays" / "000.dcm"), "-v",
                          str(sub / "volume.nii.gz"), "-m", str(sub / "mask.nii.gz"), "-c",
                          str(ckpt), "-o", str(out[run]), "--crop", "100", "--linearize",
@@ -776,7 +781,7 @@ def test_masked_linearized_register_model_matches_the_cpu(cuda, tmp_path, monkey
                          "--restart_seeds", "1", "--max_restarts", "0", "--verbose", "0",
                          "--device", dev]) == 0
         launched = {k for k, v in _cuda.LAUNCHES.items() if v}
-        assert launched == (set(smoke.SW_KERNELS) if run == "cuda" else set())
+        assert launched == (set(smoke.REGISTER_SW) if run == "cuda" else set())
     assert [tuple(t.shape) for t in grads["cpu"]] == [(1, 3), (1, 3)]
     for i, what in enumerate(("rotation", "translation")):
         got = grads["cuda"][i]

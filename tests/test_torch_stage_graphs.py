@@ -449,14 +449,15 @@ def test_replays_launch_one_graph_inside_their_span(cuda, scene):
 # on the device
 _SW_KERNELS = {"sw_accumulate": "sw_accumulate_tiled_kernel", "sw_warp": "sw_warp_kernel",
                "sw_warp_grads": "sw_warp_grads_kernel",
-               "sw_accumulate_adjoint": "sw_adjoint_tiled_kernel"}
+               "sw_accumulate_adjoint": "sw_adjoint_tiled_kernel",
+               "rays_adjoint": "rays_adjoint_kernel"}
 
 
 @pytest.mark.gpu
 def test_replays_count_the_kernels_they_run(cuda, scene):
     """Over a replayed registration ``_cuda.LAUNCHES`` grows by the K1-K4
-    kernels the device ran, as the profiler counts them (the capture's own
-    launches, recorded and not run, are not counted)."""
+    and ``rays_adjoint`` kernels the device ran, as the profiler counts them
+    (the capture's own launches, recorded and not run, are not counted)."""
     from torch.autograd import DeviceType
 
     reg = _registrar(scene, "cuda")

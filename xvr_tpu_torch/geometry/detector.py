@@ -14,7 +14,7 @@ from dataclasses import dataclass, replace as _replace
 import numpy as np
 import torch
 
-from .se3 import RigidTransform
+from .se3 import RigidTransform, transform_shared
 
 
 @dataclass(frozen=True)
@@ -82,14 +82,13 @@ class Detector:
         and target (..., H*W, 3), on the pose's device."""
         m = pose.matrix
         target_cam = self._target_grid(m.dtype, m.device)
-        source_cam = torch.zeros((1, 3), dtype=m.dtype, device=m.device)
-        if calibration is not None:
-            source_cam = calibration(source_cam[None])[0]
+        if calibration is None:
+            # the camera origin: its pose gradient needs no product
+            source = pose.t[..., None, :]
+        else:
+            source = pose(calibration.t.expand(pose.batch_shape + (1, 3)))
             target_cam = calibration(target_cam[None])[0]
-        batch = pose.batch_shape
-        source = pose(source_cam.expand(batch + (1, 3)))
-        target = pose(target_cam.expand(batch + (self.n_rays, 3)))
-        return source, target
+        return source, transform_shared(m, target_cam)
 
     def perspective_projection(self, pose: RigidTransform, pts: torch.Tensor) -> torch.Tensor:
         """Project world points (..., N, 3) onto the detector -> pixel (col, row)."""

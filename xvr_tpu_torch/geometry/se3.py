@@ -16,6 +16,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from . import so3
 from .so3 import N_ANGULAR_COMPONENTS  # noqa: F401  (re-export)
@@ -98,6 +99,52 @@ class RigidTransform:
         if parameterization == "se3_log_map":
             return se3_log_map(self)
         raise ValueError(f"Unknown parameterization {parameterization!r}")
+
+
+def _shared_adjoint_plain(g: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """Plain version of the ``rays_adjoint`` kernel, autograd's own product:
+    the cotangent ``g`` (..., N, 3) of ``q @ R^T + t`` -> the pose matrix's
+    (..., 4, 4), bottom row 0."""
+    dR = (q.expand(g.shape).transpose(-1, -2) @ g).transpose(-1, -2)
+    top = torch.cat([dR, g.sum(dim=-2)[..., None]], dim=-1)
+    return torch.cat([top, torch.zeros_like(top[..., :1, :])], dim=-2)
+
+
+class _TransformShared(torch.autograd.Function):
+    """``q @ R^T + t`` for one point set ``q`` (N, 3) under every pose of a
+    batch. The pose's cotangent reduces over the points: on CUDA tensors in
+    one kernel (``render/_cuda.py`` ``rays_adjoint``), on CPU tensors by
+    :func:`_shared_adjoint_plain`."""
+
+    @staticmethod
+    def forward(ctx, matrix, q):
+        ctx.save_for_backward(matrix, q)
+        return RigidTransform(matrix)(q.expand(matrix.shape[:-2] + q.shape))
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        matrix, q = ctx.saved_tensors
+        g_matrix = g_q = None
+        if ctx.needs_input_grad[0]:
+            if g.is_cuda:
+                from ..render import _cuda  # here: render imports this package
+
+                n = q.shape[0]
+                g_matrix = _cuda.rays_adjoint(g.reshape(-1, n, 3).contiguous(), q.contiguous())
+                g_matrix = g_matrix.reshape(matrix.shape)
+            else:
+                g_matrix = _shared_adjoint_plain(g, q)
+        if ctx.needs_input_grad[1]:
+            g_q = (g @ matrix[..., :3, :3]).sum_to_size(q.shape)
+        return g_matrix, g_q
+
+
+def transform_shared(matrix: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """``RigidTransform(matrix)(q)`` for poses ``matrix`` (..., 4, 4) that all
+    map the same points ``q`` (N, 3) -> (..., N, 3), with the same bits. Its
+    pose gradient is a reduction over the points, not a batched product."""
+    return _TransformShared.apply(matrix, q)
 
 
 def make_matrix(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,5 @@
 """Build, load and launch the hand-written CUDA kernels (shear-warp K1-K4,
-slab march K5-K8).
+slab march K5-K8, and the rays' pose adjoint).
 
 The sources live in ``xvr_tpu_torch/csrc/`` (``MANIFEST.in`` ships them in
 the package). On first use each source is compiled by its own ``nvcc``
@@ -35,7 +35,7 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = (CSRC / "shearwarp.cu", CSRC / "slab.cu")
+SOURCES = (CSRC / "shearwarp.cu", CSRC / "slab.cu", CSRC / "rays.cu")
 # per-source nvcc flags beyond the common ones
 SOURCE_FLAGS = {"slab.cu": ("-fmad=false",)}
 BUILD_ENV = "XVR_TORCH_BUILD_DIR"
@@ -47,6 +47,7 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 LAUNCHES = {
     "sw_accumulate": 0, "sw_warp": 0, "sw_warp_grads": 0, "sw_accumulate_adjoint": 0,
     "slab_forward": 0, "slab_backward": 0, "slab_channels": 0, "slab_siddon": 0,
+    "rays_adjoint": 0,
 }
 
 _lib = None
@@ -172,9 +173,12 @@ def _load():
     lib.slab_max_channels.argtypes = []
     lib.slab_channels.argtypes = [P, P, I, I, I, ctypes.POINTER(I), I, P, P, I, I, P]
     lib.slab_siddon.argtypes = [P, I, I, I, P, P, I, I, P]
+    lib.rays_adjoint_blocks.argtypes = [I]
+    lib.rays_adjoint.argtypes = [P, P, P, P, I, I, I, P]
     for fn in ("sw_accumulate", "sw_warp", "sw_warp_grads", "sw_adjoint_partials_shape",
                "sw_accumulate_adjoint", "slab_forward", "slab_backward", "slab_plane_split",
-               "slab_max_channels", "slab_channels", "slab_siddon"):
+               "slab_max_channels", "slab_channels", "slab_siddon", "rays_adjoint_blocks",
+               "rays_adjoint"):
         getattr(lib, fn).restype = I
     _lib = lib
     return lib
@@ -379,4 +383,25 @@ def slab_siddon(vol, fields) -> torch.Tensor:
                           _stream(dev))
     _raise_on(err, "slab_siddon")
     LAUNCHES["slab_siddon"] += 1
+    return out
+
+
+def rays_adjoint(g, q) -> torch.Tensor:
+    """The pose cotangent of ``q @ R^T + t`` over a batch of poses that share
+    the points ``q`` (N, 3), given the cotangent ``g`` (B, N, 3) of the
+    result: (B, 4, 4), ``[sum_n g (x) q | sum_n g]`` over a zero bottom row,
+    summed in double. Both float32 or both float64."""
+    lib = _load()
+    dev = g.device
+    if g.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"g has dtype {g.dtype}, expected float32 or float64")
+    B, N = g.shape[:2]
+    _check(g, "g", g.dtype, (B, N, 3), dev)
+    _check(q, "q", g.dtype, (N, 3), dev)
+    part = torch.empty((B, 12, lib.rays_adjoint_blocks(N)), dtype=torch.float64, device=dev)
+    out = torch.empty((B, 4, 4), dtype=g.dtype, device=dev)
+    err = lib.rays_adjoint(g.data_ptr(), q.data_ptr(), part.data_ptr(), out.data_ptr(), B, N,
+                           int(g.dtype == torch.float64), _stream(dev))
+    _raise_on(err, "rays_adjoint")
+    LAUNCHES["rays_adjoint"] += 1
     return out
