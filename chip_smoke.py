@@ -2803,7 +2803,7 @@ def objective_at(reg, xray, poses) -> list:
     proj = reg.projector.rescale_detector(scale)
     _, transform = reg._make_stage(proj, 1, 9, 11, 0.0, 0.5)
     sim = make_imagesim(9, 11, 0.0, 0.5)
-    prepared = proj.prepare_for_shearwarp(proj.density) if proj.renderer.endswith("_fast") else None
+    prepared = proj.prepare()
     out = []
     with torch.no_grad():
         for m in poses:

@@ -8,6 +8,7 @@ import os
 from pathlib import Path
 
 from xvr_tpu_torch.render import _cuda
+from torch_threads import two_torch_threads  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 

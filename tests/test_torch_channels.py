@@ -27,16 +27,7 @@ from xvr_tpu_torch.geometry import Detector, convert
 from xvr_tpu_torch.render import Projector, Volume
 from xvr_tpu_torch.render import shearwarp as tsw
 from xvr_tpu_torch.render.layout import choose_permutation_for_pose
-
-
-@pytest.fixture(autouse=True)
-def _two_torch_threads():
-    """Two torch threads per test: the suite runs several workers on one
-    machine, and each worker's torch would otherwise start a thread per core."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
+from torch_threads import two_torch_threads  # noqa: F401
 
 
 N = 40

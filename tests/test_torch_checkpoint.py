@@ -27,6 +27,7 @@ from xvr_tpu_torch.io import msgpack
 from xvr_tpu_torch.models import PoseRegressor, init_pose_regressor, load_model
 from xvr_tpu_torch.state import to_flax_params
 from xvr_tpu_torch.train import latest_checkpoint, load_checkpoint, save_checkpoint
+from torch_threads import two_torch_threads  # noqa: F401
 
 POSE_RTOL = 1e-4
 CONFIG = dict(model_name="resnet18", parameterization="quaternion_adjugate", convention="ZXY",
@@ -170,17 +171,6 @@ TRAIN_RANGES = dict(alphamin=165.0, alphamax=195.0, betamin=-15.0, betamax=15.0,
                     tymin=150.0, tymax=250.0, tzmin=-10.0, tzmax=10.0)
 
 
-@pytest.fixture
-def two_torch_threads():
-    """Two torch threads for a test that trains: the suite runs several
-    workers on one machine, and each worker's torch would otherwise start a
-    thread per core."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
-
-
 @pytest.fixture(scope="module")
 def ct_file(tmp_path_factory):
     from xvr_tpu.io import save_nifti
@@ -233,7 +223,7 @@ def _assert_same_tree(got, ref):
 
 
 @pytest.mark.parametrize("every_k", [1, 2])
-def test_jax_optimizer_state_resumes_in_port_trainer(ct_file, tmp_path, every_k, two_torch_threads):
+def test_jax_optimizer_state_resumes_in_port_trainer(ct_file, tmp_path, every_k):
     """A JAX checkpoint (weights and optax state after 3 gradients) restores
     into the port's Trainer(reuse_optimizer=True) with its iteration and
     model number; the next update on equal gradients equals optax's
@@ -265,7 +255,7 @@ def test_jax_optimizer_state_resumes_in_port_trainer(ct_file, tmp_path, every_k,
     _assert_same_tree(to_flax_params(tr.model), jax.device_get(params))
 
 
-def test_port_optimizer_state_restores_in_jax(ct_file, tmp_path, two_torch_threads):
+def test_port_optimizer_state_restores_in_jax(ct_file, tmp_path):
     """A checkpoint of the port's Trainer restores in the JAX package's
     ``restore_into(opt_state, ...)``; the next update on equal gradients is
     the port's."""

@@ -37,6 +37,7 @@ from xvr_tpu.render import Projector as JProjector
 from xvr_tpu.train.checkpoint import save_checkpoint as j_save_checkpoint
 from xvr_tpu_torch.cli import build_parser, main
 from xvr_tpu_torch.cli.commands import register
+from torch_threads import two_torch_threads  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 SUBCOMMANDS = ("model", "dicom", "fixed", "restart")
@@ -295,17 +296,6 @@ def test_train_restart_help_without_jax_click_or_msgpack(tmp_path):
     assert all(c in res.stdout for c in ("train", "restart", "register")), res.stderr
 
 
-@pytest.fixture
-def two_torch_threads():
-    """Two torch threads for a test that trains: the suite runs several
-    workers on one machine, and each worker's torch would otherwise start a
-    thread per core."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
-
-
 @pytest.fixture(scope="module")
 def train_data(tmp_path_factory):
     """tests/test_train.py's tiny dataset: a 24^3 two-tissue sphere and its
@@ -358,7 +348,7 @@ class _KeptTrainers:
 
 
 @pytest.mark.parametrize("masked", [False, True])
-def test_train_then_restart_on_cpu(train_data, tmp_path, monkeypatch, masked, two_torch_threads):
+def test_train_then_restart_on_cpu(train_data, tmp_path, monkeypatch, masked):
     """``train --device cpu`` runs 2 steps through the shear-warp route and
     writes its checkpoints (the optimizer state in optax's layout, read by
     the JAX package's ``restore_into``); ``restart`` from the step-1
@@ -416,7 +406,7 @@ def test_train_then_restart_on_cpu(train_data, tmp_path, monkeypatch, masked, tw
     assert [m["itr"] for m in logged] == [0, 1, 1] and np.isfinite(logged[-1]["loss"])
 
 
-def test_train_refuses_a_mesh(train_data, tmp_path, monkeypatch, two_torch_threads):
+def test_train_refuses_a_mesh(train_data, tmp_path, monkeypatch):
     monkeypatch.setenv("XVR_LOG_DIR", str(tmp_path / "runs"))
     with pytest.raises(ValueError, match="--n_devices 2: a device mesh needs 2 CUDA devices"):
         main(["train", "-v", str(train_data / "volume.nii.gz"), "-o", str(tmp_path / "o"),

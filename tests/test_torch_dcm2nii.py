@@ -16,6 +16,7 @@ import pytest
 from xvr_tpu.io.dcm2nii import dicom_series_to_nifti as j_dicom_series_to_nifti
 from xvr_tpu_torch.io import dcmwrite, load_nifti
 from xvr_tpu_torch.io.dcm2nii import dicom_series_to_nifti
+from torch_threads import two_torch_threads  # noqa: F401
 
 ROWS, COLS, SLICES = 16, 12, 8
 SP_ROW, SP_COL, DZ = 1.5, 2.0, 3.0

@@ -26,6 +26,7 @@ from xvr_tpu.io import dcmwrite, save_nifti
 from xvr_tpu.io.volumes import read as jread
 from xvr_tpu.render import Projector as JProjector
 from xvr_tpu_torch.cli import main as port_main
+from torch_threads import two_torch_threads  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 CSV_ATOL = 1e-4

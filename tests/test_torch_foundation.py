@@ -40,19 +40,10 @@ from portbench import scene
 from xvr_tpu_torch.render import shearwarp as sw
 from xvr_tpu_torch.train import Trainer
 from xvr_tpu_torch.utils import profiling
+from torch_threads import two_torch_threads  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 N, DEPTHS, STEPS, SEED = 24, (14, 19, 24), 8, 3000000077
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _two_torch_threads():
-    """Two torch threads, set before the module's fixtures run the steps:
-    the suite runs several workers on one machine."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def _config() -> dict:

@@ -16,6 +16,7 @@ from xvr_tpu.geometry import convert as jconvert
 from xvr_tpu.geometry import se3 as jse3
 from xvr_tpu.geometry import so3 as jso3
 from xvr_tpu_torch.geometry import Detector, RigidTransform, convert, se3, so3
+from torch_threads import two_torch_threads  # noqa: F401
 
 RTOL, ATOL = 1e-5, 1e-5
 

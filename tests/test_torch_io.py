@@ -28,6 +28,7 @@ from xvr_tpu_torch.io import (
     read_xray,
     save_nifti,
 )
+from torch_threads import two_torch_threads  # noqa: F401
 
 
 @pytest.mark.parametrize("name", ["vol.nii", "vol.nii.gz"])

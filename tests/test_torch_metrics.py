@@ -16,6 +16,7 @@ from xvr_tpu.utils import transforms as jtr
 from xvr_tpu_torch.geometry import convert
 from xvr_tpu_torch.metrics import double_geodesic
 from xvr_tpu_torch.utils import transforms as ttr
+from torch_threads import two_torch_threads  # noqa: F401
 
 # the modules (each package re-exports a function named ``ncc``)
 jncc = importlib.import_module("xvr_tpu.metrics.ncc")

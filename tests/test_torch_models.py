@@ -23,6 +23,7 @@ from xvr_tpu.models import init_pose_regressor as j_init_pose_regressor
 from xvr_tpu_torch.models import PoseRegressor, create_backbone
 from xvr_tpu_torch.models.resnet import _same_pads, make_norm
 from xvr_tpu_torch.state import from_flax_params, to_flax_params
+from torch_threads import two_torch_threads  # noqa: F401
 
 FEATURE_RTOL = 1e-4
 

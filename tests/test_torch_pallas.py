@@ -31,6 +31,7 @@ from xvr_tpu_torch.render import Projector, Volume
 from xvr_tpu_torch.render import pallas as tpallas
 from xvr_tpu_torch.render import xla as txla
 from xvr_tpu_torch.state import from_numpy_state
+from torch_threads import two_torch_threads  # noqa: F401
 
 N = 16
 PERM = (1, 0, 2)  # beam along y: march y, window x, lane z
@@ -217,8 +218,9 @@ def test_with_pallas_matches_jax():
     assert ts.pallas_window == tp.pallas_window  # nothing to measure on the GPU
     assert ts.measure_window(tpose) == ts.pallas_window
     _close(ts(tpose).detach(), js(jpose))
-    packed = ts.pack_for_pallas()
-    _close(ts(tpose, packed=packed).detach(), js(jpose))
+    prepared = ts.prepare()  # the slab kernels' operand; the golden renderer has none
+    assert torch.equal(prepared[0], ts.pack_for_pallas()[0]) and tp.prepare() is None
+    _close(ts(tpose, prepared=prepared).detach(), js(jpose))
     # beam at 45 deg between two volume axes plus a wide field of view
     jw, tw = _projectors(height=16, delx=12.0)
     jdiag, tdiag = _poses([[225.0, 0.0, 0.0]], [[0.0, 200.0, 0.0]])

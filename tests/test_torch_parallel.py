@@ -36,6 +36,7 @@ from xvr_tpu_torch.parallel import (
 from xvr_tpu_torch.parallel import mesh as pmesh
 from xvr_tpu_torch.render import Projector, Volume
 from xvr_tpu_torch.train import Trainer
+from torch_threads import two_torch_threads  # noqa: F401
 
 CPU8 = ["cpu"] * 8
 RANGES = dict(
@@ -45,15 +46,6 @@ RANGES = dict(
 )
 ROT = [[180.0, 5.0, -3.0], [170.0, -5.0, 3.0], [185.0, 2.0, 1.0], [175.0, -2.0, -1.0]]
 XYZ = [[0.0, 200.0, 0.0], [5.0, 220.0, -5.0], [-3.0, 210.0, 2.0], [2.0, 205.0, -2.0]]
-
-
-@pytest.fixture
-def two_torch_threads():
-    """Two torch threads: the suite runs several workers on one machine."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def _write_phantom(d, mask=False):
@@ -219,7 +211,7 @@ def _xray(tmp_path, height, delx):
     return volpath, xray
 
 
-def test_mesh_batched_registration(tmp_path, two_torch_threads):
+def test_mesh_batched_registration(tmp_path):
     """Batched registration over an 8-slot dp mesh: rows of a duplicated
     X-ray stay identical, K=3 pads to 8 and truncates back, and the run
     starts from the mesh-free run's similarity."""
@@ -253,7 +245,7 @@ def test_mesh_batched_registration(tmp_path, two_torch_threads):
 
 
 @pytest.mark.parametrize("seeds", [4, 1])
-def test_mesh_single_xray_auto_ray_sharded(tmp_path, monkeypatch, seeds, two_torch_threads):
+def test_mesh_single_xray_auto_ray_sharded(tmp_path, monkeypatch, seeds):
     """A K=1 registration on a mesh is not padded out with duplicates: a
     stage batch (K * seeds) that does not fill the mesh renders through
     ray_sharded_fast_render (the spy), B=4 with the batch over dp and B=1
@@ -341,7 +333,7 @@ def _same_step(tr_ref, tr):
 
 
 @pytest.mark.parametrize("route", ["golden", "shearwarp"])
-def test_dp_sharded_step_matches_single_device(tmp_path, monkeypatch, route, two_torch_threads):
+def test_dp_sharded_step_matches_single_device(tmp_path, monkeypatch, route):
     """Same draws => the sharded step's loss equals the mesh-free step's:
     the shear-warp strata split their poses over every slot, the golden
     renderer its rays over (dp, rays), the CNN its batch over every slot."""
@@ -359,7 +351,7 @@ def test_dp_sharded_step_matches_single_device(tmp_path, monkeypatch, route, two
     np.testing.assert_allclose(m["kept"], m_ref["kept"], atol=1e-6)
 
 
-def test_mesh_masked_channel_step(tmp_path, monkeypatch, two_torch_threads):
+def test_mesh_masked_channel_step(tmp_path, monkeypatch):
     """Masked training under a mesh: the label-channel shear-warp render
     with its slab bounds splits its poses over the slots, and the step's
     loss equals the mesh-free step's."""

@@ -20,16 +20,7 @@ from xvr_tpu.models.pretrained import load_imagenet_backbone as j_load
 from xvr_tpu_torch.models import PoseRegressor
 from xvr_tpu_torch.models.pretrained import find_imagenet_weights, load_imagenet_backbone
 from xvr_tpu_torch.state import to_flax_params
-
-
-@pytest.fixture(autouse=True)
-def _two_torch_threads():
-    """Two torch threads per test: the suite runs several workers on one
-    machine, and each worker's torch would otherwise start a thread per core."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
+from torch_threads import two_torch_threads  # noqa: F401
 
 
 STAGES = {"resnet18": [2, 2, 2, 2], "resnet34": [3, 4, 6, 3]}

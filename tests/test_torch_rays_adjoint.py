@@ -16,6 +16,7 @@ import torch
 
 from xvr_tpu_torch.geometry import Detector, RigidTransform, convert
 from xvr_tpu_torch.geometry.se3 import _shared_adjoint_plain, transform_shared
+from torch_threads import two_torch_threads  # noqa: F401
 
 BATCHES = {"unbatched": (), "B1": (1,), "B4": (4,), "B32": (32,)}
 

@@ -45,6 +45,7 @@ from xvr_tpu_torch.io import (  # noqa: E402
     dcmread, dcmwrite, load_nifti, pixel_array, read_xray, save_nifti)
 from xvr_tpu_torch.render.load import initialize_drr  # noqa: E402
 from xvr_tpu_torch.utils.transforms import make_xray_transforms  # noqa: E402
+from torch_threads import two_torch_threads  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 NCC_ATOL = 1e-4
@@ -57,17 +58,6 @@ def _load(path, name):
     sys.modules[name] = mod
     spec.loader.exec_module(mod)
     return mod
-
-
-@pytest.fixture
-def two_torch_threads():
-    """Two torch threads for the registration: the suite runs several
-    workers on one machine, and each worker's torch would otherwise start a
-    thread per core."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -103,7 +93,7 @@ def test_converted_tree_equals_the_jax_scripts(converted):
     assert np.array_equal(np.load(tsub / "fiducials.npy"), np.load(jsub / "fiducials.npy"))
 
 
-def test_convert_register_evaluate_loop(converted, tmp_path, two_torch_threads):
+def test_convert_register_evaluate_loop(converted, tmp_path):
     _, data_root, subject, (gt, gt_rot, gt_xyz, mapper) = converted
     npz = np.load(subject / "xrays" / "000.npz")
     assert np.allclose(mapper @ np.asarray(npz["pose"])[0], gt[0], atol=1e-5)

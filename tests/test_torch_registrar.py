@@ -32,6 +32,7 @@ from xvr_tpu_torch.geometry import RigidTransform, convert
 from xvr_tpu_torch.metrics import double_geodesic
 from xvr_tpu_torch.registrar import RegistrarFixed
 from xvr_tpu_torch.registrar.base import _drift_probes, _parse_scales
+from torch_threads import two_torch_threads  # noqa: F401
 
 SDD, HEIGHT, DELX = 400.0, 64, 3.0
 KW = dict(

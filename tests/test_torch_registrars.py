@@ -47,6 +47,7 @@ from xvr_tpu_torch.registrar import (
 )
 from xvr_tpu_torch.render import Projector
 from xvr_tpu_torch.utils import itk
+from torch_threads import two_torch_threads  # noqa: F401
 
 MODEL_CONFIG = dict(model_name="resnet18", norm_layer="groupnorm",
                     parameterization="quaternion_adjugate", convention="ZXY",

@@ -24,6 +24,7 @@ from xvr_tpu_torch.geometry import convert
 from xvr_tpu_torch.render import Projector, Volume, raymarch_trilinear, transform_hu_to_density
 from xvr_tpu_torch.render import layout
 from xvr_tpu_torch.state import from_numpy_state
+from torch_threads import two_torch_threads  # noqa: F401
 
 N, H = 24, 20
 

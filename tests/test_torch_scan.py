@@ -16,6 +16,7 @@ from xvr_tpu.geometry import Detector as JDetector, convert as jconvert
 from xvr_tpu.render import xla as jxla
 from xvr_tpu_torch.geometry import Detector, convert
 from xvr_tpu_torch.render import xla
+from torch_threads import two_torch_threads  # noqa: F401
 
 N, H = 24, 20
 

@@ -22,6 +22,7 @@ from pathlib import Path
 import pytest
 
 from xvr_tpu_torch.cli import cli as port_cli
+from torch_threads import two_torch_threads  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 JAX_SCRIPTS = sorted(p for p in REPO.glob("scripts/*/*/*.sh") if p.parts[-4] == "scripts")

@@ -27,6 +27,7 @@ from xvr_tpu.render.pallas import choose_permutation_for_pose as j_choose_perm
 from xvr_tpu_torch.geometry import Detector, convert
 from xvr_tpu_torch.render import shearwarp as tsw
 from xvr_tpu_torch.render.layout import choose_permutation_for_pose
+from torch_threads import two_torch_threads  # noqa: F401
 
 N = 40
 H = 64

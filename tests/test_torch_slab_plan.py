@@ -27,6 +27,7 @@ import pytest
 import torch
 
 from xvr_tpu_torch.render import pallas as tpallas
+from torch_threads import two_torch_threads  # noqa: F401
 
 # the kernels' constants (top of csrc/slab.cu)
 THREADS = 256

@@ -4,12 +4,11 @@ needs: nothing in an iteration copies from the host.
 On the CPU: ``shearwarp._decompose``'s gather, the similarity's Sobel and
 Gaussian kernels, ``se3.make_matrix``'s bottom row and the PA flip give the
 bits the host-copying forms gave (those forms are kept here as references);
-the device clock's tables hold the host clock's values; and the graphed
-loop's bookkeeping (static buffers, tables, records, the cache) runs with a
-stand-in that steps the buffers op by op, to the eager loop's iterations.
-On the card (``pytest -m gpu``): the graphed loop against the eager loop at
-4 and 32 poses a render, the cache of graphs, and one host sync a replayed
-iteration.
+the clock's tables give the host's arithmetic (written out here); and the
+cache of graphed stages runs with a stand-in for the replay that steps the
+buffers op by op. On the card (``pytest -m gpu``): the loop captured
+against the loop run op by op at 4 and 32 poses a render, the cache of
+graphs, and one host sync a replayed iteration.
 """
 
 from __future__ import annotations
@@ -34,6 +33,7 @@ from xvr_tpu_torch.render import shearwarp as sw
 from xvr_tpu_torch.render.projector import orientation_transform
 from xvr_tpu_torch.utils import profiling
 from xvr_tpu_torch.utils.device import device_constant
+from torch_threads import two_torch_threads  # noqa: F401
 
 ncc = importlib.import_module("xvr_tpu_torch.metrics.ncc")  # the package exports ncc()
 
@@ -152,35 +152,38 @@ def test_pa_flip_is_todays():
 
 
 # ---------------------------------------------------------------------------
-# the device clock
+# the clock
 # ---------------------------------------------------------------------------
 
 
 def test_device_clock_reads_the_host_clocks_values():
-    """At every iteration the tables give the host's warmup, patience tick,
-    iteration number and record row, and the bias corrections as the card
-    divides by a Python float: times its float32 reciprocal."""
+    """At every iteration the clock's tables give what the host computes from
+    its count: the warmup, the patience tick, the iteration number, the
+    record row, and Adam's bias corrections as a division by a Python float
+    applies them (the CPU divides; the card multiplies by the float's
+    float32 reciprocal, which the tables hold)."""
     rows, warmup = 64, 5.0
-    host, dev = base._HostClock(warmup, torch.float32), base._DeviceClock(rows, warmup,
-                                                                          torch.float32, "cpu")
+    clock = base._Clock(rows, warmup, torch.float32, "cpu")
+    b1, b2 = torch.tensor(0.9), torch.tensor(0.999)
     g = torch.Generator().manual_seed(11)
     m, v = torch.randn(4, 3, generator=g), torch.rand(4, 3, generator=g)
     done = torch.zeros(4, dtype=torch.int32)
     rec_h, rec_d = torch.zeros(rows, 4), torch.zeros(rows, 4)
     for i in range(rows):
-        host.i = i
-        assert dev.ctr.tolist() == [i]
-        assert dev.warm().tolist() == [np.float32(host.warm())]
-        assert dev.ticking().tolist() == [host.ticking()]
-        assert torch.equal(dev.itr(done).expand(4), host.itr(done))
-        c1, c2 = host.corrections()
-        got = dev.unbias(m, v)
-        for x, c, y in ((m, c1, got[0]), (v, c2, got[1])):
-            assert torch.equal(y, x * torch.tensor(np.float32(1.0) / np.float32(c)))
+        t = torch.tensor(i + 1.0)
+        c1, c2 = float(1 - b1**t), float(1 - b2**t)
+        assert clock.ctr.tolist() == [i]
+        assert clock.warm().tolist() == [np.float32(min((i + 1.0) / warmup, 1.0))]
+        assert clock.ticking().tolist() == [i + 1.0 >= warmup]
+        assert torch.equal(clock.itr(done).expand(4), torch.full_like(done, i + 1))
+        got = clock.unbias(m, v)
+        assert torch.equal(got[0], m / c1) and torch.equal(got[1], v / c2)
+        for inv, c in ((clock.inv_c1, c1), (clock.inv_c2, c2)):
+            assert inv[i].item() == np.float32(1.0) / np.float32(c)
         row = torch.full((4,), float(i))
-        host.record(rec_h, row)
-        dev.record(rec_d, row)
-        dev.advance()
+        rec_h[i] = row
+        clock.record(rec_d, row)
+        clock.advance()
     assert torch.equal(rec_h, rec_d)
 
 
@@ -262,41 +265,30 @@ def _gap(a, b) -> float:
 
 
 # ---------------------------------------------------------------------------
-# the graphed loop's bookkeeping on the CPU
+# the cache of graphed stages on the CPU
 # ---------------------------------------------------------------------------
 
 
-def _cpu_unbias(clock, m, v):
-    """The bias corrections as the CPU applies them: it divides by a Python
-    float where the card multiplies by its reciprocal."""
-    host = base._HostClock(1.0, m.dtype)
-    host.i = int(clock.ctr)
-    return host.unbias(m, v)
-
-
 def test_graphed_loop_bookkeeping_on_the_cpu(scene, monkeypatch):
-    """The graphed stage with a stand-in for the graph (each iteration steps
-    the static buffers op by op, reading the device clock) runs the eager
-    loop's iterations to its bits, and reuses its buffers: a second
-    registration of the same shape makes no new entry, another K·S does."""
+    """Graphed stages with a stand-in for the replay (each iteration steps
+    the buffers op by op): one cached stage a stage shape, one
+    prepared-volume buffer shared by them, the same bits when a second
+    registration of the same shape reuses them, and new entries for another
+    K·S."""
     monkeypatch.setenv("XVR_FORCE_SHEARWARP", "1")
-    eager = _register(_registrar(scene, "cpu", n_itrs="8,6"), scene, 1)
     monkeypatch.setattr(base, "_graphs_engage", lambda *a: True)
-    monkeypatch.setattr(base._StageGraph, "run", lambda self, it: (self._step(it), 1)[1])
-    monkeypatch.setattr(base._DeviceClock, "unbias", _cpu_unbias)
+    monkeypatch.setattr(base._Stage, "_replay", lambda self: (self._step(), 1)[1])
     reg = _registrar(scene, "cpu", n_itrs="8,6")
     profiling.enable()
     graphed = _register(reg, scene, 1)
     counters = profiling.snapshot()["counters"]
-    assert graphed["n_done"] == eager["n_done"]
     assert counters["register.graph_replays"] == counters["register.iterations"] == sum(
         graphed["n_done"])
-    assert _gap(graphed, eager) == 0.0
     assert len(reg._stage_graphs) == 2
     entries = list(reg._stage_graphs.values())
     assert entries[0].prepared is entries[1].prepared  # one volume's buffer, shared
     assert _gap(_register(reg, scene, 1), graphed) == 0.0
-    assert len(reg._stage_graphs) == 2
+    assert list(reg._stage_graphs.values()) == entries
     _register(reg, scene, 2)
     assert len(reg._stage_graphs) == 4
 
@@ -327,8 +319,9 @@ def cuda():
 
 
 def _held_to_eager(scene, graphed, n_xrays, **kw):
-    """Two eager registrations: where they agree bit for bit the graphed
-    one must too, else it is held to their gap with equal iterations."""
+    """Two registrations run op by op: where they agree bit for bit the
+    graphed one must too, else it is held to their gap with equal
+    iterations."""
     with pytest.MonkeyPatch.context() as mp:  # the loop op by op, as on a mesh
         mp.setattr(base, "_graphs_engage", lambda *a: False)
         runs = [_register(_registrar(scene, "cuda", **kw), scene, n_xrays) for _ in range(2)]

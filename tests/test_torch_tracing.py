@@ -29,6 +29,7 @@ from xvr_tpu_torch.io import dcmwrite, read, save_nifti
 from xvr_tpu_torch.registrar import RegistrarFixed
 from xvr_tpu_torch.render import Projector
 from xvr_tpu_torch.utils import profiling
+from torch_threads import two_torch_threads  # noqa: F401
 
 SDD, HEIGHT, DELX = 400.0, 48, 4.0
 REGISTER = dict(linearize=False, scales="2,1", n_itrs="4,4", reverse_x_axis=False, lr_rot=5e-3,
@@ -39,8 +40,8 @@ TRAIN = dict(alphamin=165.0, alphamax=195.0, betamin=-15.0, betamax=15.0, gammam
              tzmax=10.0, sdd=SDD, height=32, delx=4.0, model_name="resnet18", batch_size=4,
              n_total_itrs=4, n_warmup_itrs=1, n_grad_accum_itrs=1, n_save_every_itrs=100,
              lr=1e-3, p_augmentation=0.5, seed=3)
-STAGE_SPANS = ("register.render", "register.similarity", "register.backward", "register.update",
-               "register.exit_check")
+STAGE_SPANS = ("register.buffers", "register.render", "register.similarity", "register.backward",
+               "register.update", "register.exit_check")
 TRAIN_SPANS = ("train.subject", "train.draw", "train.render", "train.augment", "train.cnn",
                "train.loss", "train.backward", "train.optim")
 PARENTS = {"register.request": None, "register.read": "register.request",
@@ -48,14 +49,6 @@ PARENTS = {"register.request": None, "register.read": "register.request",
            "register.stage": "register.request", "register.save": None,
            **{k: "register.stage" for k in STAGE_SPANS}}
 LAUNCHES = ("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch")  # and their Ex forms
-
-
-@pytest.fixture(autouse=True)
-def _two_torch_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(autouse=True)
@@ -256,7 +249,7 @@ def test_register_span_is_in_the_profiler_trace(registered, name):
 
 
 def test_register_spans_nest(registered):
-    """request > read, prepare, seed, stage > the five spans of the loop;
+    """request > read, prepare, seed, stage > the six spans of the loop;
     save after the request; the loop's spans tile a stage but for its
     set-up."""
     _, _, snap = registered

@@ -46,16 +46,7 @@ from xvr_tpu_torch.train import (
 )
 from xvr_tpu_torch.train.optim import agc_axes
 from xvr_tpu_torch.train.sampler import RANGE_KEYS, get_random_pose, pose_from_uniforms
-
-
-@pytest.fixture(autouse=True)
-def _two_torch_threads():
-    """Two torch threads per test: the suite runs several workers on one
-    machine, and each worker's torch would otherwise start a thread per core."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
+from torch_threads import two_torch_threads  # noqa: F401
 
 
 RANGES = dict(

@@ -22,16 +22,7 @@ from xvr_tpu.io import save_nifti
 from xvr_tpu.train import trainer as jtrainer
 from xvr_tpu_torch.render import Volume
 from xvr_tpu_torch.train import Trainer, pad_volumes
-
-
-@pytest.fixture(autouse=True)
-def _two_torch_threads():
-    """Two torch threads per test: the suite runs several workers on one
-    machine, and each worker's torch would otherwise start a thread per core."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
+from torch_threads import two_torch_threads  # noqa: F401
 
 
 RANGES = dict(

@@ -38,16 +38,7 @@ from xvr_tpu_torch.state import from_flax_params, to_flax_params
 
 from test_torch_train import jax_aug_draws
 from test_torch_trainer import _both, _jax_route, subjects_dataset, tiny_dataset  # noqa: F401
-
-
-@pytest.fixture(autouse=True)
-def _two_torch_threads():
-    """Two torch threads per test: the suite runs several workers on one
-    machine, and each worker's torch would otherwise start a thread per core."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
+from torch_threads import two_torch_threads  # noqa: F401
 
 
 def _set_heads(tj, seed=0):

@@ -40,14 +40,7 @@ from xvr_tpu_torch.visualization import (  # noqa: E402
 from xvr_tpu.train import trainer as jtrainer  # noqa: E402
 from test_torch_trainer import RANGES, _kwargs, tiny_dataset  # noqa: E402,F401
 from test_torch_trainer_step import _set_heads  # noqa: E402
-
-
-@pytest.fixture(autouse=True)
-def _two_torch_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
+from torch_threads import two_torch_threads  # noqa: F401
 
 
 def _close(got, ref):

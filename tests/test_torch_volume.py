@@ -15,16 +15,7 @@ import torch
 from xvr_tpu.render import load_example_ct as j_example, make_test_volume as j_test_volume
 from xvr_tpu_torch.render import load_example_ct, make_test_volume
 from xvr_tpu_torch.utils import profiling
-
-
-@pytest.fixture(autouse=True)
-def _two_torch_threads():
-    """Two torch threads per test: the suite runs several workers on one
-    machine, and each worker's torch would otherwise start a thread per core."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
+from torch_threads import two_torch_threads  # noqa: F401
 
 
 @pytest.mark.parametrize("kind", ["cube", "sphere", "gradient", "random"])

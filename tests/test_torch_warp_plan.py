@@ -26,6 +26,7 @@ import torch
 
 from xvr_tpu_torch.render import _cuda
 from xvr_tpu_torch.render import shearwarp as sw
+from torch_threads import two_torch_threads  # noqa: F401
 
 # the plans the launcher takes
 PLANS = [(t, p) for p in (1, 2, 4) for t in (64, 128, 256)]

@@ -27,10 +27,10 @@ import sys
 from pathlib import Path
 
 import numpy as np
-import pytest
-import torch
 
 import jax.numpy as jnp
+
+from torch_threads import two_torch_threads  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 OBJECTIVE_ATOL = 1e-4  # the two packages' similarity at the same pose
@@ -68,15 +68,7 @@ def _jax_objective(reg, xray, poses):
     return out
 
 
-@pytest.fixture
-def two_torch_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
-
-
-def test_the_port_ends_where_jax_ends(tmp_path, monkeypatch, two_torch_threads):
+def test_the_port_ends_where_jax_ends(tmp_path, monkeypatch):
     from xvr_tpu.registrar import RegistrarFixed as JaxFixed
     from xvr_tpu_torch.registrar import RegistrarFixed as PortFixed
 

@@ -156,23 +156,25 @@ def _projectors(mesh: Mesh, projector) -> list:
 
 
 def batch_sharded_render(mesh: Mesh, projector, pose: RigidTransform, density=None,
-                         packed=None, prepared=None) -> torch.Tensor:
+                         prepared=None) -> torch.Tensor:
     """Render a pose batch split over every slot, each slot rendering its
-    poses whole with its copy of the volume -> raw (B, [C,] R) integrals on
-    the first slot's device, as ``projector.render_rays`` gives them. Exact
-    for every renderer: images are independent."""
+    poses whole with its copy of the volume (and of ``prepared``, the
+    projector's :meth:`~xvr_tpu_torch.render.Projector.prepare`) -> raw
+    (B, [C,] R) integrals on the first slot's device, as
+    ``projector.render_rays`` gives them. Exact for every renderer: images
+    are independent."""
     args = zip(_projectors(mesh, projector), shard_batch_flat(mesh, pose.matrix),
-               replicated(mesh, density), replicated(mesh, packed), replicated(mesh, prepared))
+               replicated(mesh, density), replicated(mesh, prepared))
     outs = []
-    for proj, mat, dens, pk, prep in args:
+    for proj, mat, dens, prep in args:
         with on_device(proj.device):
             src, tgt = proj.rays(RigidTransform(mat))
-            outs.append(proj.render_rays(src, tgt, density=dens, packed=pk, prepared=prep))
+            outs.append(proj.render_rays(src, tgt, density=dens, prepared=prep))
     return gather(mesh, outs)
 
 
 def ray_sharded_render(mesh: Mesh, projector, pose: RigidTransform, density=None,
-                       packed=None, prepared=None) -> torch.Tensor:
+                       prepared=None) -> torch.Tensor:
     """Render a pose batch with its rays split over (dp, rays), the batch
     over dp -> raw (B, [C,] R) on the first slot's device. Exact for the
     renderers that integrate every ray on its own (the golden renderers and
@@ -182,12 +184,11 @@ def ray_sharded_render(mesh: Mesh, projector, pose: RigidTransform, density=None
     rays = mesh.shape["rays"]
     srcs = [s for s in shard_batch(mesh, src) for _ in range(rays)]
     args = zip(_projectors(mesh, projector), srcs, shard_rays(mesh, tgt),
-               replicated(mesh, density), replicated(mesh, packed), replicated(mesh, prepared))
+               replicated(mesh, density), replicated(mesh, prepared))
     outs = []
-    for proj, s, t, dens, pk, prep in args:
+    for proj, s, t, dens, prep in args:
         with on_device(proj.device):
-            outs.append(proj.render_rays(s.to(proj.device), t, density=dens, packed=pk,
-                                         prepared=prep))
+            outs.append(proj.render_rays(s.to(proj.device), t, density=dens, prepared=prep))
     rows = [gather(mesh, outs[i : i + rays], dim=-1) for i in range(0, len(outs), rays)]
     return torch.cat(rows, dim=0)
 

@@ -24,11 +24,14 @@ device, which is the registrar's device.
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import time
 import warnings
+from dataclasses import dataclass, field
 from pathlib import Path
+from typing import Callable
 
 import numpy as np
 import torch
@@ -37,7 +40,7 @@ from ..geometry import RigidTransform, convert
 from ..metrics.ncc import make_imagesim
 from ..render.load import initialize_drr
 from ..render import _cuda
-from ..render.projector import Projector
+from ..render.projector import Projector, kernel_upgrade_allowed
 from ..utils.profiling import count, host_sync, span
 from ..utils.transforms import make_xray_transforms
 
@@ -90,7 +93,7 @@ def _host(x: torch.Tensor) -> np.ndarray:
 
 # Adam's constants (the reference's)
 _B1, _B2, _EPS = 0.9, 0.999, 1e-8
-# rows of a stage graph's tables and records: the least power of two that
+# rows of a stage's clock tables and records: the least power of two that
 # holds n_itr, and at least this many, so that stages of one shape share a
 # graph whatever their n_itr up to it
 _GRAPH_ROWS = 1024
@@ -111,65 +114,45 @@ def _graphs_engage(projector: Projector, mesh, parameterization: str) -> bool:
             and parameterization not in _HOST_BOUND_PARAMETERIZATIONS)
 
 
-class _HostClock:
-    """The stage loop's per-iteration scalars from the host's count ``i``:
-    Adam's bias corrections, the lr warmup, whether patience ticks, the
-    iteration's number and its record row."""
-
-    def __init__(self, warmup: float, dtype):
-        self.warmup, self.dtype, self.i = warmup, dtype, 0
-        self.b1, self.b2 = torch.tensor(_B1, dtype=dtype), torch.tensor(_B2, dtype=dtype)
-
-    def corrections(self) -> tuple[float, float]:
-        t = torch.tensor(self.i + 1.0, dtype=self.dtype)
-        return float(1 - self.b1**t), float(1 - self.b2**t)
-
-    def unbias(self, m, v):
-        c1, c2 = self.corrections()
-        return m / c1, v / c2
-
-    def warm(self) -> float:
-        return min((self.i + 1.0) / self.warmup, 1.0)
-
-    def ticking(self) -> bool:
-        return self.i + 1.0 >= self.warmup
-
-    def itr(self, like):
-        return torch.full_like(like, self.i + 1)
-
-    def record(self, buf, row) -> None:
-        buf[self.i] = row
-
-    def advance(self) -> None:
-        self.i += 1
+@functools.lru_cache(maxsize=8)
+def _clock_table(rows: int, warmup: float, dtype: torch.dtype) -> np.ndarray:
+    """(6, rows), for iteration i: Adam's bias corrections 1 - b**(i + 1) as
+    ``dtype`` scalars give them, their float32 reciprocals, the lr warmup
+    min((i + 1) / warmup, 1) and whether patience ticks, i + 1 >= warmup."""
+    b1, b2 = torch.tensor(_B1, dtype=dtype), torch.tensor(_B2, dtype=dtype)
+    cols = []
+    for i in range(rows):
+        t = torch.tensor(i + 1.0, dtype=dtype)
+        c1, c2 = float(1 - b1**t), float(1 - b2**t)
+        cols.append((c1, c2, np.float32(1.0) / np.float32(c1), np.float32(1.0) / np.float32(c2),
+                     min((i + 1.0) / warmup, 1.0), i + 1.0 >= warmup))
+    return np.asarray(cols, dtype=np.float64).T
 
 
-class _DeviceClock:
-    """The same scalars from tables on the device, read at a counter on the
-    device, so that one captured iteration reads the current iteration's
-    values. The tables hold the host's values bit for bit; a CUDA tensor
-    divided by a Python float is multiplied by the float's float32
-    reciprocal, so they hold the bias corrections' reciprocals."""
+class _Clock:
+    """The stage loop's per-iteration scalars from tables on the device, read
+    at a counter on the device, so that a captured iteration reads the
+    current iteration's values: Adam's bias corrections, the lr warmup,
+    whether patience ticks, the iteration's number and its record row."""
 
     def __init__(self, rows: int, warmup: float, dtype, device):
-        host = _HostClock(warmup, dtype)
-        cols = []
-        for i in range(rows):
-            host.i = i
-            c1, c2 = host.corrections()
-            cols.append((np.float32(1.0) / np.float32(c1), np.float32(1.0) / np.float32(c2),
-                         host.warm(), host.ticking()))
-        table = np.asarray(cols, dtype=np.float64).T
+        table = _clock_table(rows, warmup, dtype)
         host_sync(device, 2)
-        self.inv_c1, self.inv_c2, self.warm_tab = torch.tensor(table[:3], dtype=dtype).to(device)
-        self.tick_tab = torch.tensor(table[3] > 0).to(device)
+        self.c1, self.c2, self.inv_c1, self.inv_c2, self.warm_tab = torch.tensor(
+            table[:5], dtype=dtype).to(device)
+        self.tick_tab = torch.tensor(table[5] > 0).to(device)
         self.ctr = torch.zeros(1, dtype=torch.int64, device=device)
 
     def _at(self, table):
         return table.index_select(0, self.ctr)
 
     def unbias(self, m, v):
-        return m * self._at(self.inv_c1), v * self._at(self.inv_c2)
+        """Adam's moments over their bias corrections, as a division by a
+        Python float gives them: a CUDA tensor is multiplied by the float's
+        float32 reciprocal, a CPU tensor divided by the float."""
+        if m.device.type == "cuda":
+            return m * self._at(self.inv_c1), v * self._at(self.inv_c2)
+        return m / self._at(self.c1), v / self._at(self.c2)
 
     def warm(self):
         return self._at(self.warm_tab)
@@ -187,42 +170,212 @@ class _DeviceClock:
         self.ctr.add_(1)
 
 
-class _StageGraph:
-    """One stage shape's loop iteration as a CUDA graph over static buffers:
-    the loop's state ``st`` and records ``rec``, the per-iteration scalars'
-    tables (``clock``), the X-ray ``gt`` and the ``prepared`` volume, which
-    :meth:`load` fills at each stage's start. The first iteration after the
-    graph is made runs op by op on the graph's stream (cuBLAS, cuDNN and the
-    autograd engine set themselves up there), the next is captured and
-    replayed, and every later one, in any stage of the same key, is one
-    replay. ``owner`` keeps alive what the captured work reads besides the
-    buffers (the projector's volume)."""
+@dataclass(frozen=True)
+class _Settings:
+    """What a stage's iterations read besides their buffers. Stages of equal
+    settings share one cached stage and its graph: the projector counts by
+    its volume's identity (the cached stage keeps that volume alive) and its
+    other fields, the buffers by their shapes."""
 
-    def __init__(self, st: dict, rec: tuple, clock: _DeviceClock, gt, prepared, owner):
-        self.st, self.rec, self.clock = st, rec, clock
-        self.gt, self.prepared, self.owner = gt, prepared, owner
+    projector: Projector = field(compare=False)
+    mesh: object = field(compare=False)
+    transform: Callable = field(compare=False)
+    imagesim: Callable = field(compare=False)
+    volume: int
+    view: Projector  # the projector without its tensors
+    shapes: tuple  # the poses', the X-ray's
+    rows: int
+    lr_rot: float
+    lr_xyz: float
+    similarity: tuple  # (mncc_patch_size, gncc_patch_size, sigma, beta)
+    equalize: bool
+    parameterization: str
+    convention: str | None
+    patience: int
+    threshold: float
+    max_n_plateaus: int
+    warmup: float
+    graphed: bool
+
+
+class _Stage:
+    """One pyramid stage's loop over its buffers: the loop's state ``st``,
+    its records ``rec`` (the pose after each step, the similarity before it,
+    the lrs), the :class:`_Clock`, the X-ray ``gt`` and the ``prepared``
+    volume, which :meth:`load` fills at each stage's start. Where the
+    settings are ``graphed`` an iteration is one replay of a CUDA graph: the
+    first after the buffers are made runs op by op on a side stream (cuBLAS,
+    cuDNN and the autograd engine set themselves up there), the next is
+    captured and replayed, and every later one, in any stage of equal
+    settings, is one replay. Elsewhere an iteration runs op by op."""
+
+    def __init__(self, cfg: _Settings, rot, xyz, gt, prepared):
+        self.cfg = cfg
+        K, dev, fdt = rot.shape[0], rot.device, rot.dtype
+        self.st = self._fresh(rot, xyz, 0)
+        self.rec = (torch.zeros((cfg.rows, K, 6), dtype=fdt, device=dev),
+                    torch.zeros((cfg.rows, K), dtype=fdt, device=dev),
+                    torch.zeros((cfg.rows, K, 2), dtype=fdt, device=dev))
+        self.clock = _Clock(cfg.rows, cfg.warmup, fdt, dev)
+        self.gt, self.prepared, self.density = gt, prepared, None
         self.stream = self.graph = self.launches = None
         self.warmed = False
 
-    def load(self, st: dict, rec: tuple, gt, prepared) -> None:
-        for k, v in st.items():
-            self.st[k].copy_(v)
-        for buf, v in zip(self.rec, rec):
-            buf.copy_(v)
-        self.clock.ctr.zero_()
-        self.gt.copy_(gt)
-        self.prepared.copy_(prepared)
+    @staticmethod
+    def _fresh(rot, xyz, n_itr: int) -> dict:
+        """The loop's state at a stage's start."""
+        K = rot.shape[0]
+        dev, fdt = rot.device, rot.dtype
+        rot, xyz = rot.detach().clone(), xyz.detach().clone()
+        return dict(
+            rot=rot, xyz=xyz, m_r=torch.zeros_like(rot), v_r=torch.zeros_like(rot),
+            m_x=torch.zeros_like(xyz), v_x=torch.zeros_like(xyz),
+            b_rot=rot.clone(), b_xyz=xyz.clone(),
+            best_raw=torch.full((K,), -float("inf"), dtype=fdt, device=dev),
+            lr_scale=torch.ones((K,), dtype=fdt, device=dev),
+            best=torch.full((K,), -float("inf"), dtype=fdt, device=dev),
+            num_bad=torch.zeros((K,), dtype=torch.int32, device=dev),
+            # the reference's lr-drop counter starts at +inf, so the first
+            # step counts one plateau
+            n_plateaus=torch.zeros((K,), dtype=torch.int32, device=dev),
+            current_lr=torch.full((K,), float("inf"), dtype=fdt, device=dev),
+            done_itr=torch.full((K,), n_itr, dtype=torch.int32, device=dev),
+        )
 
-    def _step(self, iterate) -> None:
-        new = iterate(self.st, self.rec, self.clock, self.gt, self.prepared)
+    def load(self, rot, xyz, gt, density, prepared, n_itr: int) -> None:
+        """The stage's start into the buffers."""
+        for k, v in self._fresh(rot, xyz, n_itr).items():
+            self.st[k].copy_(v)
+        for buf in self.rec:
+            buf.zero_()
+        self.clock.ctr.zero_()
+        for buf, v in ((self.gt, gt), (self.prepared, prepared)):
+            if buf is not v:
+                buf.copy_(v)
+        self.density = density
+
+    def _rendered(self, rot, xyz):
+        cfg, p, mesh = self.cfg, self.cfg.projector, self.cfg.mesh
+        pose = convert(rot, xyz, parameterization=cfg.parameterization, convention=cfg.convention)
+        B = pose.matrix.shape[0]
+        if mesh is None or p.kernels == "slab" or (B % mesh.size and p.kernels != "shearwarp"):
+            return p(pose, density=self.density, prepared=self.prepared)
+        from ..parallel import mesh as pmesh
+
+        if B % mesh.size == 0:
+            # each slot renders its share of the images whole
+            raw = pmesh.batch_sharded_render(mesh, p, pose, density=self.density,
+                                             prepared=self.prepared)
+        else:
+            # a batch that does not divide the mesh: every render's rows
+            # split over the slots, so a single registration uses them all
+            raw = pmesh.ray_sharded_fast_render(mesh, p, pose, density=self.density,
+                                                prepared=self.prepared)
+        return p.reshape_transform(raw, B)
+
+    def running(self, i: int, n_itr: int) -> bool:
+        """The loop's exit check: the host waits for the device's answer."""
+        if i >= n_itr:
+            return False
+        with span("register.exit_check"):
+            n_plateaus = self.st["n_plateaus"]
+            host_sync(n_plateaus)
+            return bool((n_plateaus < self.cfg.max_n_plateaus).any())
+
+    def iterate(self) -> dict:
+        """One iteration from the state ``st`` -> the new state; the records
+        are written in place at the clock's row."""
+        cfg, st, clock = self.cfg, self.st, self.clock
+        K = st["rot"].shape[0]
+        with span("register.render"):
+            r_ = st["rot"].detach().requires_grad_(True)
+            x_ = st["xyz"].detach().requires_grad_(True)
+            img = self._rendered(r_, x_)
+        with span("register.similarity"):
+            sims = cfg.imagesim(self.gt, cfg.transform(img))
+        with span("register.backward"):
+            g_r, g_x = torch.autograd.grad(sims.sum(), (r_, x_))
+        with span("register.update"):
+            n_plateaus, lr_scale = st["n_plateaus"], st["lr_scale"]
+            live = n_plateaus < cfg.max_n_plateaus
+            rot, xyz = r_.detach(), x_.detach()
+            loss = sims.detach()
+
+            def adam(p, m, v, g, lr):
+                m = _B1 * m + (1 - _B1) * g
+                v = _B2 * v + (1 - _B2) * g * g
+                m_hat, v_hat = clock.unbias(m, v)
+                return p + lr[:, None] * m_hat / (torch.sqrt(v_hat) + _EPS), m, v
+
+            def frozen(new, old):
+                return torch.where(live[:, None], new, old)
+
+            # lr warmup: fresh Adam moments move a full +-lr per component on
+            # the first steps; ramp them in
+            warm = clock.warm()
+            lr_r = cfg.lr_rot * lr_scale * warm
+            lr_x = cfg.lr_xyz * lr_scale * warm
+            m_r, v_r, m_x, v_x = st["m_r"], st["v_r"], st["m_x"], st["v_x"]
+            rot2, m_r2, v_r2 = adam(rot, m_r, v_r, g_r, lr_r)
+            xyz2, m_x2, v_x2 = adam(xyz, m_x, v_x, g_x, lr_x)
+            rot2, m_r2, v_r2 = frozen(rot2, rot), frozen(m_r2, m_r), frozen(v_r2, v_r)
+            xyz2, m_x2, v_x2 = frozen(xyz2, xyz), frozen(m_x2, m_x), frozen(v_x2, v_x)
+
+            # argmax-pose tracking (the loss is of the PRE-step pose)
+            raw_improved = (loss > st["best_raw"]) & live
+            best_raw = torch.where(raw_improved, loss, st["best_raw"])
+            b_rot = torch.where(raw_improved[:, None], rot, st["b_rot"])
+            b_xyz = torch.where(raw_improved[:, None], xyz, st["b_xyz"])
+
+            # scheduler.step(loss); warmup iterations do not tick patience
+            num_bad = st["num_bad"]
+            improved = loss > st["best"] * (1.0 + cfg.threshold)
+            best = torch.where(improved & live, loss, st["best"])
+            ticking = live & clock.ticking()
+            num_bad = torch.where(
+                ticking, torch.where(improved, torch.zeros_like(num_bad), num_bad + 1), num_bad,
+            )
+            reduce = (num_bad > cfg.patience) & live
+            lr_scale = torch.where(reduce, lr_scale * 0.1, lr_scale)
+            num_bad = torch.where(reduce, torch.zeros_like(num_bad), num_bad)
+
+            # plateau counting on observed lr drops (the initial one too)
+            lr_now = cfg.lr_rot * lr_scale
+            dropped = (lr_now < st["current_lr"]) & live
+            current_lr = torch.where(dropped, lr_now, st["current_lr"])
+            n_plateaus = n_plateaus + dropped.to(n_plateaus.dtype)
+            newly_done = (n_plateaus >= cfg.max_n_plateaus) & live
+            done_itr = torch.where(newly_done, clock.itr(st["done_itr"]), st["done_itr"])
+
+            # record (pose after the step, similarity before it)
+            pose2 = convert(rot2, xyz2, parameterization=cfg.parameterization,
+                            convention=cfg.convention)
+            e_rot, e_xyz = pose2.convert("euler_angles", "ZXY")
+            traj, nccs, lrs = self.rec
+            clock.record(traj, torch.cat([e_rot.reshape(K, -1)[:, :3],
+                                          e_xyz.reshape(K, -1)[:, :3]], 1))
+            clock.record(nccs, loss)
+            clock.record(lrs, torch.stack([lr_r, lr_x], dim=1))
+        return dict(rot=rot2, xyz=xyz2, m_r=m_r2, v_r=v_r2, m_x=m_x2, v_x=v_x2,
+                    b_rot=b_rot, b_xyz=b_xyz, best_raw=best_raw, best=best, num_bad=num_bad,
+                    lr_scale=lr_scale, current_lr=current_lr, n_plateaus=n_plateaus,
+                    done_itr=done_itr)
+
+    def _step(self) -> None:
+        new = self.iterate()
         with span("register.update"):
             for k, v in new.items():
                 self.st[k].copy_(v)
             self.clock.advance()
 
-    def run(self, iterate) -> int:
-        """One iteration of ``iterate`` on the buffers -> 1 if it was a
-        replay."""
+    def step(self) -> int:
+        """One iteration on the buffers -> 1 if it was a graph replay."""
+        if not self.cfg.graphed:
+            self._step()
+            return 0
+        return self._replay()
+
+    def _replay(self) -> int:
         if self.graph is None:
             if self.stream is None:
                 self.stream = torch.cuda.Stream(self.gt.device)
@@ -230,14 +383,14 @@ class _StageGraph:
             self.stream.wait_stream(cur)
             if not self.warmed:
                 with torch.cuda.stream(self.stream):
-                    self._step(iterate)
+                    self._step()
                 cur.wait_stream(self.stream)
                 self.warmed = True
                 return 0
             graph = torch.cuda.CUDAGraph()
             with _cuda.captured() as self.launches:
                 with torch.cuda.graph(graph, stream=self.stream):
-                    self._step(iterate)
+                    self._step()
             cur.wait_stream(self.stream)
             count("register.graph_captures")
             self.graph = graph
@@ -245,6 +398,24 @@ class _StageGraph:
             self.graph.replay()
         _cuda.replayed(self.launches)
         return 1
+
+    def finish(self, i: int):
+        """The loop records PRE-step losses, so the final iterate was never
+        scored: score it and keep, per image, the better of (last, argmax)
+        -> (rot, xyz, iterations run, *records, final similarity)."""
+        cfg, st = self.cfg, self.st
+        with torch.no_grad():
+            with span("register.render"):
+                img = self._rendered(st["rot"], st["xyz"])
+            with span("register.similarity"):
+                last_ncc = cfg.imagesim(self.gt, cfg.transform(img))
+        with span("register.update"):
+            use_last = last_ncc >= st["best_raw"]
+            rot_out = torch.where(use_last[:, None], st["rot"], st["b_rot"])
+            xyz_out = torch.where(use_last[:, None], st["xyz"], st["b_xyz"])
+            final_ncc = torch.maximum(last_ncc, st["best_raw"])
+            n_done = torch.clamp(st["done_itr"], max=i)
+        return rot_out, xyz_out, n_done, *self.rec, final_ncc
 
 
 class RegistrarBase:
@@ -339,8 +510,8 @@ class RegistrarBase:
         self.save_kwargs = save_kwargs or {}
         # one record per stage run: detector, iterations, wall time
         self.stage_log: list[dict] = []
-        # the stages' CUDA graphs by key, least recently used first
-        self._stage_graphs: dict[tuple, _StageGraph] = {}
+        # the graphed stages by their settings, least recently used first
+        self._stage_graphs: dict[_Settings, _Stage] = {}
 
         self.projector = initialize_drr(
             volume,
@@ -365,247 +536,66 @@ class RegistrarBase:
         raise NotImplementedError
 
     # ------------------------------------------------------------------
-    def _stage_graph(self, key, make) -> "_StageGraph":
-        """The cached stage graph of ``key``, made by ``make(prepared_buffer)``
-        when there is none (the buffer of a cached graph whose volume has the
-        same shape, else None; stages run one at a time, so they may share
-        it). The least recently used of more than ``_MAX_STAGE_GRAPHS`` is
-        dropped."""
-        graphs = self._stage_graphs
-        entry = graphs.pop(key, None)
+    def _stage(self, cfg: _Settings, rot, xyz, gt, prepared) -> _Stage:
+        """The stage of ``cfg``: where graphed, the cached one, made when there
+        is none with the prepared-volume buffer of a cached stage whose volume
+        has the same shape (stages run one at a time, so they may share it),
+        the least recently used of more than ``_MAX_STAGE_GRAPHS`` dropped;
+        elsewhere a new one over ``gt`` and ``prepared`` themselves."""
+        if not cfg.graphed:
+            return _Stage(cfg, rot, xyz, gt, prepared)
+        stages = self._stage_graphs
+        entry = stages.pop(cfg, None)
         if entry is None:
-            shape = key[-1]
-            entry = make(next((e.prepared for e in graphs.values()
-                               if (e.prepared.shape, e.prepared.dtype) == shape), None))
-            if len(graphs) >= _MAX_STAGE_GRAPHS:
-                graphs.pop(next(iter(graphs)))
-        graphs[key] = entry
+            shared = next((e.prepared for e in stages.values()
+                           if (e.prepared.shape, e.prepared.dtype) == (prepared.shape,
+                                                                       prepared.dtype)), None)
+            entry = _Stage(cfg, rot, xyz, torch.empty_like(gt),
+                           torch.empty_like(prepared) if shared is None else shared)
+            if len(stages) >= _MAX_STAGE_GRAPHS:
+                stages.pop(next(iter(stages)))
+        stages[cfg] = entry
         return entry
 
     # ------------------------------------------------------------------
     def _make_stage(self, projector: Projector, n_itr: int, mncc_patch_size, gncc_patch_size,
                     sigma, beta):
         """One pyramid stage as a function of (rot, xyz, gt, density, lr_rot,
-        lr_xyz), plus the X-ray transform of its detector. Where
-        :func:`_graphs_engage`, the stage replays each iteration as one CUDA
-        graph (:class:`_StageGraph`, cached on the registrar); elsewhere it
-        runs the iterations op by op. Both give the same bits."""
+        lr_xyz), plus the X-ray transform of its detector. The stage runs its
+        iterations on a :class:`_Stage`'s buffers: where
+        :func:`_graphs_engage`, each one replay of a CUDA graph (the stage
+        cached on the registrar), elsewhere op by op."""
         H, W = projector.detector.height, projector.detector.width
         transform = make_xray_transforms(H, W, use_equalize=self.equalize)
-        parameterization, convention = self.parameterization, self.convention
-        patience, threshold = self.patience, self.threshold
-        max_n_plateaus = self.max_n_plateaus
-        warmup = float(self.stage_warmup)
-        use_fast = projector.renderer.endswith("_fast")
-        use_pallas = projector.renderer == "trilinear_pallas"
-
         imagesim = make_imagesim(mncc_patch_size, gncc_patch_size, sigma, beta)
-        mesh = self.mesh
-        graphed = _graphs_engage(projector, mesh, parameterization)
-
-        def render(pose, density, packed, prepared):
-            B = pose.matrix.shape[0]
-            if mesh is None or use_pallas or (B % mesh.size and not use_fast):
-                return projector(pose, density=density, packed=packed, prepared=prepared)
-            from ..parallel import mesh as pmesh
-
-            if B % mesh.size == 0:
-                # each slot renders its share of the images whole
-                raw = pmesh.batch_sharded_render(mesh, projector, pose, density=density,
-                                                 prepared=prepared)
-            else:
-                # a batch that does not divide the mesh: every render's rows
-                # split over the slots, so a single registration uses them all
-                raw = pmesh.ray_sharded_fast_render(mesh, projector, pose, density=density,
-                                                    prepared=prepared)
-            return projector.reshape_transform(raw, B)
-
-        def rendered(rot, xyz, density, packed, prepared):
-            pose = convert(rot, xyz, parameterization=parameterization, convention=convention)
-            return render(pose, density, packed, prepared)
-
-        def running(i, n_plateaus) -> bool:
-            """The loop's exit check: the host waits for the device's answer."""
-            if i >= n_itr:
-                return False
-            with span("register.exit_check"):
-                host_sync(n_plateaus)
-                return bool((n_plateaus < max_n_plateaus).any())
-
-        def fresh(rot, xyz, rows):
-            """The loop's state at the stage's start, and its records (the
-            pose after each step, the similarity before it, the lrs) of
-            ``rows`` iterations."""
-            K = rot.shape[0]
-            dev, fdt = rot.device, rot.dtype
-            rot, xyz = rot.detach().clone(), xyz.detach().clone()
-            st = dict(
-                rot=rot, xyz=xyz, m_r=torch.zeros_like(rot), v_r=torch.zeros_like(rot),
-                m_x=torch.zeros_like(xyz), v_x=torch.zeros_like(xyz),
-                b_rot=rot.clone(), b_xyz=xyz.clone(),
-                best_raw=torch.full((K,), -float("inf"), dtype=fdt, device=dev),
-                lr_scale=torch.ones((K,), dtype=fdt, device=dev),
-                best=torch.full((K,), -float("inf"), dtype=fdt, device=dev),
-                num_bad=torch.zeros((K,), dtype=torch.int32, device=dev),
-                # the reference's lr-drop counter starts at +inf, so the
-                # first step counts one plateau
-                n_plateaus=torch.zeros((K,), dtype=torch.int32, device=dev),
-                current_lr=torch.full((K,), float("inf"), dtype=fdt, device=dev),
-                done_itr=torch.full((K,), n_itr, dtype=torch.int32, device=dev),
-            )
-            rec = (torch.zeros((rows, K, 6), dtype=fdt, device=dev),
-                   torch.zeros((rows, K), dtype=fdt, device=dev),
-                   torch.zeros((rows, K, 2), dtype=fdt, device=dev))
-            return st, rec
-
-        def iterate(st, rec, clock, gt, density, packed, prepared, lr_rot, lr_xyz) -> dict:
-            """One iteration from the state ``st`` -> the new state; the
-            records ``rec`` are written in place at ``clock``'s row."""
-            K = st["rot"].shape[0]
-            with span("register.render"):
-                r_ = st["rot"].detach().requires_grad_(True)
-                x_ = st["xyz"].detach().requires_grad_(True)
-                img = rendered(r_, x_, density, packed, prepared)
-            with span("register.similarity"):
-                sims = imagesim(gt, transform(img))
-            with span("register.backward"):
-                g_r, g_x = torch.autograd.grad(sims.sum(), (r_, x_))
-            with span("register.update"):
-                n_plateaus, lr_scale = st["n_plateaus"], st["lr_scale"]
-                live = n_plateaus < max_n_plateaus
-                rot, xyz = r_.detach(), x_.detach()
-                loss = sims.detach()
-
-                def adam(p, m, v, g, lr):
-                    m = _B1 * m + (1 - _B1) * g
-                    v = _B2 * v + (1 - _B2) * g * g
-                    m_hat, v_hat = clock.unbias(m, v)
-                    return p + lr[:, None] * m_hat / (torch.sqrt(v_hat) + _EPS), m, v
-
-                def frozen(new, old):
-                    return torch.where(live[:, None], new, old)
-
-                # lr warmup: fresh Adam moments move a full +-lr per
-                # component on the first steps; ramp them in
-                warm = clock.warm()
-                lr_r = lr_rot * lr_scale * warm
-                lr_x = lr_xyz * lr_scale * warm
-                m_r, v_r, m_x, v_x = st["m_r"], st["v_r"], st["m_x"], st["v_x"]
-                rot2, m_r2, v_r2 = adam(rot, m_r, v_r, g_r, lr_r)
-                xyz2, m_x2, v_x2 = adam(xyz, m_x, v_x, g_x, lr_x)
-                rot2, m_r2, v_r2 = frozen(rot2, rot), frozen(m_r2, m_r), frozen(v_r2, v_r)
-                xyz2, m_x2, v_x2 = frozen(xyz2, xyz), frozen(m_x2, m_x), frozen(v_x2, v_x)
-
-                # argmax-pose tracking (the loss is of the PRE-step pose)
-                raw_improved = (loss > st["best_raw"]) & live
-                best_raw = torch.where(raw_improved, loss, st["best_raw"])
-                b_rot = torch.where(raw_improved[:, None], rot, st["b_rot"])
-                b_xyz = torch.where(raw_improved[:, None], xyz, st["b_xyz"])
-
-                # scheduler.step(loss); warmup iterations do not tick patience
-                num_bad = st["num_bad"]
-                improved = loss > st["best"] * (1.0 + threshold)
-                best = torch.where(improved & live, loss, st["best"])
-                ticking = live & clock.ticking()
-                num_bad = torch.where(
-                    ticking, torch.where(improved, torch.zeros_like(num_bad), num_bad + 1),
-                    num_bad,
-                )
-                reduce = (num_bad > patience) & live
-                lr_scale = torch.where(reduce, lr_scale * 0.1, lr_scale)
-                num_bad = torch.where(reduce, torch.zeros_like(num_bad), num_bad)
-
-                # plateau counting on observed lr drops (the initial one too)
-                lr_now = lr_rot * lr_scale
-                dropped = (lr_now < st["current_lr"]) & live
-                current_lr = torch.where(dropped, lr_now, st["current_lr"])
-                n_plateaus = n_plateaus + dropped.to(n_plateaus.dtype)
-                newly_done = (n_plateaus >= max_n_plateaus) & live
-                done_itr = torch.where(newly_done, clock.itr(st["done_itr"]), st["done_itr"])
-
-                # record (pose after the step, similarity before it)
-                pose2 = convert(rot2, xyz2, parameterization=parameterization,
-                                convention=convention)
-                e_rot, e_xyz = pose2.convert("euler_angles", "ZXY")
-                traj, nccs, lrs = rec
-                clock.record(traj, torch.cat([e_rot.reshape(K, -1)[:, :3],
-                                              e_xyz.reshape(K, -1)[:, :3]], 1))
-                clock.record(nccs, loss)
-                clock.record(lrs, torch.stack([lr_r, lr_x], dim=1))
-            return dict(rot=rot2, xyz=xyz2, m_r=m_r2, v_r=v_r2, m_x=m_x2, v_x=v_x2,
-                        b_rot=b_rot, b_xyz=b_xyz, best_raw=best_raw, best=best, num_bad=num_bad,
-                        lr_scale=lr_scale, current_lr=current_lr, n_plateaus=n_plateaus,
-                        done_itr=done_itr)
-
-        def finish(st, rec, i, gt, density, packed, prepared):
-            # the loop records PRE-step losses, so the final iterate was never
-            # scored: score it and keep, per image, the better of (last, argmax)
-            with torch.no_grad():
-                with span("register.render"):
-                    img = rendered(st["rot"], st["xyz"], density, packed, prepared)
-                with span("register.similarity"):
-                    last_ncc = imagesim(gt, transform(img))
-            with span("register.update"):
-                use_last = last_ncc >= st["best_raw"]
-                rot_out = torch.where(use_last[:, None], st["rot"], st["b_rot"])
-                xyz_out = torch.where(use_last[:, None], st["xyz"], st["b_xyz"])
-                final_ncc = torch.maximum(last_ncc, st["best_raw"])
-                n_done = torch.clamp(st["done_itr"], max=i)
-            return rot_out, xyz_out, n_done, *rec, final_ncc
+        rows = max(_GRAPH_ROWS, 1 << max(n_itr - 1, 0).bit_length())
 
         def stage(rot, xyz, gt, density, lr_rot, lr_xyz):
-            if graphed:
-                return graphed_stage(rot, xyz, gt, density, lr_rot, lr_xyz)
-            # permute/cast the volume once per stage, outside the loop
-            packed = projector.pack_for_pallas(density) if use_pallas else None
-            prepared = projector.prepare_for_shearwarp(density) if use_fast else None
-            st, rec = fresh(rot, xyz, n_itr)
-            clock = _HostClock(warmup, rot.dtype)
-            i = 0
-            while running(i, st["n_plateaus"]):
-                st.update(iterate(st, rec, clock, gt, density, packed, prepared, lr_rot, lr_xyz))
-                clock.advance()
-                count("register.iterations")
-                i += 1
-            count("register.graph_replays", 0)
-            return finish(st, rec, i, gt, density, packed, prepared)
-
-        def graphed_stage(rot, xyz, gt, density, lr_rot, lr_xyz):
-            rows = max(_GRAPH_ROWS, 1 << max(n_itr - 1, 0).bit_length())
-            p = projector
-            with span("register.buffers"):  # the stage's start into the graph's buffers
-                prepared = p.prepare_for_shearwarp(density)
-                # the graph's key: everything its work reads but its buffers
-                key = (id(p.volume), p.detector, p.renderer, p.pallas_perm, p.shearwarp_grid,
-                       p.shearwarp_bounds, p.voxel_shift, tuple(rot.shape), tuple(gt.shape),
-                       rows, float(lr_rot), float(lr_xyz),
-                       (mncc_patch_size, gncc_patch_size, sigma, beta), self.equalize,
-                       parameterization, convention, patience, threshold, max_n_plateaus,
-                       warmup, (prepared.shape, prepared.dtype))
-
-                def make(volume_buffer):
-                    st, rec = fresh(rot, xyz, rows)
-                    buf = torch.empty_like(prepared) if volume_buffer is None else volume_buffer
-                    return _StageGraph(st, rec, _DeviceClock(rows, warmup, rot.dtype, rot.device),
-                                       torch.empty_like(gt), buf, p)
-
-                entry = self._stage_graph(key, make)
-                entry.load(*fresh(rot, xyz, rows), gt, prepared)
+            with span("register.buffers"):  # the stage's start into its buffers
+                prepared = projector.prepare(density)
+                cfg = _Settings(
+                    projector=projector, mesh=self.mesh, transform=transform, imagesim=imagesim,
+                    volume=id(projector.volume), view=projector.replace(volume=None, density=None),
+                    shapes=(tuple(rot.shape), tuple(gt.shape)), rows=rows,
+                    lr_rot=float(lr_rot), lr_xyz=float(lr_xyz),
+                    similarity=(mncc_patch_size, gncc_patch_size, sigma, beta),
+                    equalize=self.equalize, parameterization=self.parameterization,
+                    convention=self.convention, patience=self.patience, threshold=self.threshold,
+                    max_n_plateaus=self.max_n_plateaus, warmup=float(self.stage_warmup),
+                    graphed=_graphs_engage(projector, self.mesh, self.parameterization),
+                )
+                s = self._stage(cfg, rot, xyz, gt, prepared)
+                s.load(rot, xyz, gt, density, prepared, n_itr)
                 del prepared
-
-            def step(st, rec, clock, gt_, prepared_):
-                return iterate(st, rec, clock, gt_, density, None, prepared_, lr_rot, lr_xyz)
-
             i = replays = 0
-            while running(i, entry.st["n_plateaus"]):
-                replays += entry.run(step)
+            while s.running(i, n_itr):
+                replays += s.step()
                 count("register.iterations")
                 i += 1
             count("register.graph_replays", replays)
-            out = finish(entry.st, entry.rec, i, gt, density, None, entry.prepared)
-            rot_out, xyz_out, n_done, traj, nccs, lrs, final_ncc = out
+            rot_out, xyz_out, n_done, *records, final_ncc = s.finish(i)
             with span("register.buffers"):  # the records out of them
-                records = tuple(r[:n_itr].clone() for r in (traj, nccs, lrs))
+                records = tuple(r[:n_itr].clone() for r in records)
             return (rot_out, xyz_out, n_done, *records, final_ncc)
 
         return stage, transform
@@ -696,11 +686,7 @@ class RegistrarBase:
         rays; a ``trilinear`` renderer that is left (shear-warp declined, or
         ``XVR_NO_SHEARWARP``) becomes ``trilinear_pallas`` when the slab
         kernels accept them. ``XVR_NO_PALLAS`` disables every upgrade."""
-        if (
-            self.renderer not in ("trilinear", "siddon")
-            or not (self.device.type == "cuda" or os.environ.get("XVR_FORCE_SHEARWARP"))
-            or os.environ.get("XVR_NO_PALLAS")
-        ):
+        if self.renderer not in ("trilinear", "siddon") or not kernel_upgrade_allowed(self.device):
             return
         if not os.environ.get("XVR_NO_SHEARWARP"):
             coarse = self.projector.rescale_detector(scales[0]).with_shearwarp(init_pose)

@@ -15,6 +15,7 @@ Renderers: ``trilinear`` and ``siddon`` (the golden renderers),
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass, replace as _replace
 
 import numpy as np
@@ -28,6 +29,16 @@ from .layout import choose_permutation_for_pose, measured_steepness
 from .volume import Volume, transform_hu_to_density
 
 _SHEARWARP = ("trilinear_shearwarp", "trilinear_fast", "siddon_shearwarp", "siddon_fast")
+_SLAB = ("trilinear_pallas", "siddon_pallas")
+
+
+def kernel_upgrade_allowed(device) -> bool:
+    """Whether the registrar and the trainer may upgrade a golden renderer to
+    the hand-written kernels: on a CUDA device, or on any under
+    ``XVR_FORCE_SHEARWARP`` (the CPU tests set it), and never under
+    ``XVR_NO_PALLAS``."""
+    return ((torch.device(device).type == "cuda" or bool(os.environ.get("XVR_FORCE_SHEARWARP")))
+            and not os.environ.get("XVR_NO_PALLAS"))
 
 
 def _batched(pose: RigidTransform) -> RigidTransform:
@@ -113,6 +124,17 @@ class Projector:
     @property
     def device(self) -> torch.device:
         return self.density.device
+
+    @property
+    def kernels(self) -> str | None:
+        """The hand-written kernels that render: ``"shearwarp"`` (K1-K4, whose
+        slope grid is fitted to the rays of a render), ``"slab"`` (K5-K8), or
+        None for the golden renderers."""
+        if self.renderer in _SHEARWARP:
+            return "shearwarp"
+        if self.renderer in _SLAB:
+            return "slab"
+        return None
 
     def replace(self, **kwargs) -> "Projector":
         return _replace(self, **kwargs)
@@ -270,9 +292,20 @@ class Projector:
         return self.detector.inverse_projection(self._oriented(pose), pts)
 
     # -- rendering -----------------------------------------------------------
+    def prepare(self, density: torch.Tensor | None = None):
+        """The volume operand the renderer reads, permuted and cast once (hoist
+        out of optimization loops; pass as ``prepared``): shear-warp's
+        :meth:`prepare_for_shearwarp`, the slab kernels' :meth:`pack_for_pallas`,
+        None for the golden renderers, which read the density."""
+        if self.kernels == "shearwarp":
+            return self.prepare_for_shearwarp(density)
+        if self.kernels == "slab":
+            return self.pack_for_pallas(density)
+        return None
+
     def pack_for_pallas(self, density: torch.Tensor | None = None):
-        """Permute and cast the density for the slab kernels (hoist out of
-        optimization loops; pass as ``packed``)."""
+        """Permute and cast the density for the slab kernels -> (table, its
+        shape)."""
         from .pallas import pack_density
 
         density = self.density if density is None else density
@@ -281,9 +314,8 @@ class Projector:
         return pack_density(density, self.pallas_perm)
 
     def prepare_for_shearwarp(self, density: torch.Tensor | None = None) -> torch.Tensor:
-        """Permute and cast the density for the shear-warp renderer (hoist
-        out of optimization loops; pass as ``prepared``). With a labelmap,
-        the (C, M, Wd, L) channel stack."""
+        """Permute and cast the density for the shear-warp renderer. With a
+        labelmap, the (C, M, Wd, L) channel stack."""
         from .shearwarp import prepare_shearwarp
 
         density = self.density if density is None else density
@@ -292,8 +324,9 @@ class Projector:
         mask = self.volume.mask if self.labels is not None else None
         return prepare_shearwarp(density, self.pallas_perm, mask=mask, labels=self.labels)
 
-    def render_rays(self, source, target, density=None, mask=None, packed=None, prepared=None):
-        """Integrate rays given world-space endpoints -> (B, R)."""
+    def render_rays(self, source, target, density=None, mask=None, prepared=None):
+        """Integrate rays given world-space endpoints -> (B, R). ``prepared``
+        is :meth:`prepare`'s operand, made per call when None."""
         density = self.density if density is None else density
         mask = self.volume.mask if mask is None else mask
         labels = self.labels if mask is not None else None
@@ -312,13 +345,13 @@ class Projector:
             if self.renderer.endswith("_fast"):
                 return raymarch_trilinear_fast(density, self.affine_inverse, source, target, **kwargs)
             return raymarch_trilinear_shearwarp(density, self.affine_inverse, source, target, **kwargs)
-        if self.renderer in ("trilinear_pallas", "siddon_pallas"):
+        if self.renderer in _SLAB:
             from .pallas import raymarch_siddon_pallas, raymarch_trilinear_pallas
 
             kwargs = dict(
                 mask=mask, labels=labels,
                 det_shape=(self.detector.height, self.detector.width),
-                window=self.pallas_window, perm=self.pallas_perm, packed=packed,
+                window=self.pallas_window, perm=self.pallas_perm, packed=prepared,
                 remap=self.pallas_remap,
             )
             if self.renderer == "siddon_pallas":
@@ -341,13 +374,12 @@ class Projector:
         return img.reshape(batch_size, -1, self.detector.height, self.detector.width)
 
     def __call__(self, pose: RigidTransform, density=None, mask=None, calibration=None,
-                 packed=None, prepared=None) -> torch.Tensor:
+                 prepared=None) -> torch.Tensor:
         """Render DRRs at a batch of poses -> (B, C, H, W)."""
         squeeze = pose.matrix.ndim == 2
         if squeeze:
             pose = RigidTransform(pose.matrix[None])
         source, target = self.rays(pose, calibration)
-        img = self.render_rays(source, target, density=density, mask=mask, packed=packed,
-                               prepared=prepared)
+        img = self.render_rays(source, target, density=density, mask=mask, prepared=prepared)
         img = self.reshape_transform(img, batch_size=pose.matrix.shape[0])
         return img[0] if squeeze else img

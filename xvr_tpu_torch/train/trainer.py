@@ -30,7 +30,6 @@ from __future__ import annotations
 
 import json
 import math
-import os
 import time
 from functools import partial
 from pathlib import Path
@@ -42,7 +41,7 @@ from ..geometry import RigidTransform, convert, make_translation
 from ..io.volumes import read
 from ..models import PoseRegressor, init_pose_regressor
 from ..parallel import batch_sharded_render, gather, ray_sharded_render, shard_batch_flat
-from ..render.projector import Projector
+from ..render.projector import Projector, kernel_upgrade_allowed
 from ..render.volume import Volume, transform_hu_to_density
 from ..state import from_flax_params, to_flax_params
 from ..utils.itk import get_4x4
@@ -57,7 +56,6 @@ from .schedule import identity_schedule, warmup_cosine_schedule
 
 IMG_THRESHOLD = 0.10  # keep if >10% of pixels are nonzero
 MASK_THRESHOLD = 0.05  # keep if >5% of pixels hit masked structures
-_FAST = ("_fast", "_shearwarp")
 
 
 def pad_volumes(volumes: list[Volume]) -> list[Volume]:
@@ -193,12 +191,8 @@ class Trainer:
         self.strata_ranges = [dict(self.pose_ranges)]
         self.strata_counts = (self.batch_size,)
         self.projectors = [(p,) for p in flat]
-        if (
-            renderer in ("trilinear", "siddon")
-            and not self.renderer_exact
-            and (self.device.type == "cuda" or os.environ.get("XVR_FORCE_SHEARWARP"))
-            and not os.environ.get("XVR_NO_PALLAS")
-        ):
+        if (renderer in ("trilinear", "siddon") and not self.renderer_exact
+                and kernel_upgrade_allowed(self.device)):
             self._upgrade_renderer(renderer)
 
         # ---- model ----
@@ -412,19 +406,20 @@ class Trainer:
                                  self.p_augmentation)
         return dict(pose=pose, contrast=contrast, aug=aug)
 
-    def render_batch(self, projectors, pose: RigidTransform, density, packed, prepared):
-        """Render the pose batch stratum by stratum -> (B, C, H, W). Under a
-        mesh a shear-warp stratum splits its poses over every slot (each
-        slot renders whole images: the factorization is per image), any
-        other its rays over (dp, rays)."""
+    def render_batch(self, projectors, pose: RigidTransform, density, prepared):
+        """Render the pose batch stratum by stratum, each stratum's projector
+        from its ``prepared`` operand -> (B, C, H, W). Under a mesh a
+        shear-warp stratum splits its poses over every slot (each slot renders
+        whole images: the factorization is per image), any other its rays over
+        (dp, rays)."""
         offsets = np.concatenate([[0], np.cumsum(self.strata_counts)])
         imgs = []
         for k, proj in enumerate(projectors):
             pose_k = RigidTransform(pose.matrix[int(offsets[k]):int(offsets[k + 1])])
-            kw = dict(density=density, packed=packed[k], prepared=prepared[k])
+            kw = dict(density=density, prepared=prepared[k])
             if self.mesh is None:
                 raw = proj.render_rays(*proj.rays(pose_k), **kw)
-            elif proj.renderer.endswith(_FAST):
+            elif proj.kernels == "shearwarp":
                 raw = batch_sharded_render(self.mesh, proj, pose_k, **kw)
             else:
                 raw = ray_sharded_render(self.mesh, proj, pose_k, **kw)
@@ -457,12 +452,9 @@ class Trainer:
             pose = RigidTransform(draws["pose"]).compose(make_translation(center))
             density = transform_hu_to_density(projectors[0].volume.data, draws["contrast"])
             # pack/permute once per step, for both renders and the backward
-            packed = [p.pack_for_pallas(density) if p.renderer == "trilinear_pallas" else None
-                      for p in projectors]
-            prepared = [p.prepare_for_shearwarp(density) if p.renderer.endswith(_FAST) else None
-                        for p in projectors]
+            prepared = [p.prepare(density) for p in projectors]
             with torch.no_grad():
-                raw = self.render_batch(projectors, pose, density, packed, prepared)
+                raw = self.render_batch(projectors, pose, density, prepared)
         with span("train.augment"), torch.no_grad():
             fg = (raw > 0).to(raw.dtype)
             img = raw.sum(dim=1, keepdim=True)
@@ -480,7 +472,7 @@ class Trainer:
                 pred_pose = pred_pose.compose(self.reframe)
         # the re-render at the predicted poses, each in its target's stratum
         with span("train.render"):
-            praw = self.render_batch(projectors, pred_pose, density, packed, prepared)
+            praw = self.render_batch(projectors, pred_pose, density, prepared)
         with span("train.loss"):
             pfg = (praw > 0).to(praw.dtype).detach()
             pimg = praw.sum(dim=1, keepdim=True)
