@@ -40,7 +40,11 @@ Phases (each prints one or more lines; any failure exits non-zero):
              at the same four shapes on a render's own ray cotangent,
              against its plain version in float64, eleven calls
              bit-identical, its times beside its byte bound and beside the
-             batched GEMM it replaces (library)
+             batched GEMM it replaces (library); the content boxes K1/K4
+             skip by (sw_content_boxes) on the bench volume and the
+             trainer's channel stack, equal to their plain version, with
+             their times and byte bound (one "content_boxes" JSON line at
+             the end, with their launches on each path)
 4. slices    GT render; the shear-warp and slab registrations, each with the
              launch counts of its own run and its mTRE; the label and Siddon
              renders, each with its launch counts (and pack_labels' time per
@@ -142,6 +146,7 @@ DEVICE_KERNELS = {
     "slab_channels": ("slab_channels_kernel",),
     "slab_siddon": ("slab_siddon_kernel",),
     "rays_adjoint": ("rays_adjoint_kernel", "rays_adjoint_sum_kernel"),
+    "sw_content_boxes": ("sw_content_boxes_kernel",),
 }
 # f32 operations per evaluated (ray, plane) pair, counted from slab.cu:
 # arithmetic, min/max, abs, floor and rint, a fused multiply-add as 2;
@@ -409,6 +414,81 @@ def same_bits(name, first, call, label):
         raise AssertionError(f"{name} {label}: calls differ")
 
 
+def whole_boxes(vol):
+    """Content boxes of a (M, Wd, L) volume that every tile meets: K1/K4
+    given them march every slab their geometry keeps (no content skip)."""
+    import torch
+
+    M, Wd, L = vol.shape
+    return torch.tensor([0, Wd - 1, 0, L - 1], dtype=torch.int32, device=vol.device).repeat(M, 1)
+
+
+def skip_counts(call):
+    """K1/K4's slab tally over ``call()`` -> (its result, (marched, skipped
+    for content))."""
+    import torch
+    from xvr_tpu_torch.render import _cuda
+
+    if not torch.cuda.is_available():  # a rehearsal on the CPU: nothing counts
+        return call(), (0, 0)
+    tally = _cuda.slab_tally(torch.device("cuda"))
+    before = tally.clone()
+    out = call()
+    marched, skipped = (tally - before).tolist()
+    return out, (marched, skipped)
+
+
+def same_as_dense(name, call, boxes, dense_boxes, label):
+    """A K1/K4 call with the volume's content boxes against the same call
+    with :func:`whole_boxes`, bit for bit (the skipped slabs add exactly
+    +0.0), and the slab tally's counts of the two adding up. -> (the
+    result, (marched, skipped))."""
+    import torch
+
+    got, (m, k) = skip_counts(lambda: call(boxes))
+    dense, (md, kd) = skip_counts(lambda: call(dense_boxes))
+    pairs = zip(*((x,) if torch.is_tensor(x) else x for x in (got, dense)))
+    ok = all(torch.equal(a, b) for a, b in pairs) and kd == 0 and m + k == md
+    log(f"  {name} {label}: content skip {k} of {m + k} slabs ({100.0 * k / max(m + k, 1):.1f}%), "
+        f"bit-identical to the dense march {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name} {label}: the content skip changed the result or its counts "
+                             f"({m}, {k}) against ({md}, {kd})")
+    return got, (m, k)
+
+
+def check_content_boxes(vol, label, time_ms=cuda_time_ms):
+    """The content-box kernel (``sw_content_boxes``, the boxes K1/K4 skip
+    by) on a permuted bf16 volume or channel stack against its plain
+    version, exactly (``torch.equal``); CUDA-event time over 20 calls,
+    torch.profiler device time on the card and one call of the plain
+    version, beside its bound (the volume read once at HBM bandwidth).
+    -> record."""
+    import torch
+    from xvr_tpu_torch.render import shearwarp as sw
+
+    got, ref = sw.content_boxes(vol), sw._content_boxes(vol)
+    same = bool(torch.equal(got, ref))
+    C, M, Wd, L = (vol if vol.ndim == 4 else vol[None]).shape
+    nbytes = vol.numel() * vol.element_size() + got.numel() * got.element_size()
+    call = partial(sw.content_boxes, vol)
+    rec = dict(name="sw_content_boxes", route="cuda", source=SW_SOURCE, shape=f"{label} C={C} "
+               f"M={M} Wd={Wd} L={L}", same_as_plain=same, slabs=C * M,
+               empty_slabs=int((got[..., 1] < 0).sum()), ms=time_ms(call, 20),
+               profiler_ms=profiler_ms({"sw_content_boxes": call})["sw_content_boxes"]
+               if vol.is_cuda else None,
+               plain_ms=time_ms(partial(sw._content_boxes, vol), 3),
+               bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
+    fmt = lambda ms: "not measured" if ms is None else f"{ms:.4f} ms"  # noqa: E731
+    log(f"  sw_content_boxes [{rec['shape']}]: equal to the plain version "
+        f"{'OK' if same else 'FAIL'}; {rec['empty_slabs']} of {C * M} slabs empty; kernel "
+        f"{rec['ms']:.4f} ms, device {fmt(rec['profiler_ms'])}, plain {rec['plain_ms']:.4f} ms, "
+        f"bound {rec['bound_ms']:.4f} ms (bytes: {nbytes / 1e6:.1f} MB)")
+    if not same:
+        raise AssertionError(f"sw_content_boxes {label}: the boxes differ from the plain version's")
+    return rec
+
+
 # K1/K4 geometry beyond the path's inputs: (volume shape or None for the bench
 # volume, source s_p mean, (u0, du), (v0, dv), slope grid, exact). Each image
 # moves it by a random jitter, or if exact by binary fractions that keep every
@@ -524,20 +604,27 @@ def phase_edge_kernels(bench_vol, seed=6):
         args = (f(np.array(s) + ds), f(np.ones(B)), jit(u0), jit(du), jit(v0), jit(dv))
         ibar = torch.randn((B, Iu, Iv), generator=torch.Generator(device="cuda").manual_seed(seed),
                            device="cuda")
+        boxes, dense = sw.content_boxes(vol)[0], whole_boxes(vol)
         for eps in (1.0, 0.25):
             kw = dict(Iu=Iu, Iv=Iv, eps=eps)
             tag = f"{label} vol {tuple(vol.shape)} grid {Iu}x{Iv} eps {eps}"
-            k1 = sw.accumulate(vol, *args, **kw)
+            k1 = sw.accumulate(vol, *args, boxes=boxes, **kw)
+            same_as_dense("K1 sw_accumulate", lambda b: sw.accumulate(vol, *args, boxes=b, **kw),
+                          boxes, dense, tag)
+            same_as_dense("K4 sw_accumulate_adjoint",
+                          lambda b: sw.accumulate_adjoint(vol, *args, ibar, boxes=b, **kw),
+                          boxes, dense, tag)
             r1 = sw._accumulate(vol, *[a.double() for a in args], bf16=False, **kw)
             errs["sw_accumulate"] = max(errs["sw_accumulate"], check(
                 "K1 sw_accumulate", k1.double(), r1, tag, 2e-5 * float(r1.abs().max()), 2e-4))
-            same_bits("K1 sw_accumulate", k1, lambda: sw.accumulate(vol, *args, **kw), tag)
-            k4 = sw.accumulate_adjoint(vol, *args, ibar, **kw)
+            same_bits("K1 sw_accumulate", k1,
+                      lambda: sw.accumulate(vol, *args, boxes=boxes, **kw), tag)
+            k4 = sw.accumulate_adjoint(vol, *args, ibar, boxes=boxes, **kw)
             r4 = sw._accumulate_adjoint(vol, *args, ibar, bf16=False, **kw)
             errs["sw_accumulate_adjoint"] = max(errs["sw_accumulate_adjoint"], check(
                 "K4 sw_accumulate_adjoint", k4, r4, tag, 1e-4 * float(r4.abs().max()), 1e-3))
             same_bits("K4 sw_accumulate_adjoint", k4,
-                      lambda: sw.accumulate_adjoint(vol, *args, ibar, **kw), tag)
+                      lambda: sw.accumulate_adjoint(vol, *args, ibar, boxes=boxes, **kw), tag)
     errs.update(sw_warp=0.0, sw_warp_grads=0.0)
     for label, (B, Iu, Iv, R, mis) in WARP_EDGE_CASES.items():
         I, uc, vc, ws = warp_edge_inputs(B, Iu, Iv, R, mis, seed=seed)
@@ -574,22 +661,30 @@ def check_sw_stage(vol, proj, pose, label):
     Iu, Iv = x["grid"]
     B, R = x["uc"].shape
     args = (x["s"], x["sgn"], x["u0"], x["du"], x["v0"], x["dv"])
+    boxes, dense = sw.content_boxes(vol)[0], whole_boxes(vol)
     errs, out = {}, None
     for eps in (1.0, 0.25):
         tag = f"{label} det {det[0]}x{det[1]} grid {Iu}x{Iv} eps {eps}"
         kw = dict(Iu=Iu, Iv=Iv, eps=eps)
-        k1 = sw.accumulate(vol, *args, **kw)
+
+        def k1_call(b):
+            return sw.accumulate(vol, *args, boxes=b, **kw)
+
+        k1, _ = same_as_dense("K1 sw_accumulate", k1_call, boxes, dense, tag)
         r1 = sw._accumulate(vol, *(a.double() for a in args), bf16=False, **kw)
         e1 = check("K1 sw_accumulate", k1.double(), r1, tag, 2e-5 * float(r1.abs().max()), 2e-4)
-        same_bits("K1 sw_accumulate", k1, lambda: sw.accumulate(vol, *args, **kw), tag)
+        same_bits("K1 sw_accumulate", k1, partial(k1_call, boxes), tag)
         log(f"    vs JAX bf16 recipe: {float((k1 - sw._accumulate(vol, *args, **kw)).abs().max()):.3e}")
         # K4 on the cotangent image of a random detector cotangent
         ibar = sw._warp_transpose(x["g"] * x["ws"], x["uc"], x["vc"], grid_shape=(Iu, Iv))
-        k4 = sw.accumulate_adjoint(vol, *args, ibar, **kw)
+
+        def k4_call(b):
+            return sw.accumulate_adjoint(vol, *args, ibar, boxes=b, **kw)
+
+        k4, _ = same_as_dense("K4 sw_accumulate_adjoint", k4_call, boxes, dense, tag)
         r4 = sw._accumulate_adjoint(vol, *args, ibar, bf16=False, **kw)
         e4 = check("K4 sw_accumulate_adjoint", k4, r4, tag, 1e-4 * float(r4.abs().max()), 1e-3)
-        same_bits("K4 sw_accumulate_adjoint", k4,
-                  lambda: sw.accumulate_adjoint(vol, *args, ibar, **kw), tag)
+        same_bits("K4 sw_accumulate_adjoint", k4, partial(k4_call, boxes), tag)
         log(f"    vs JAX bf16 recipe: {float((k4 - sw._accumulate_adjoint(vol, *args, ibar, **kw)).abs().max()):.3e}")
         errs["sw_accumulate"] = max(errs.get("sw_accumulate", 0.0), e1)
         errs["sw_accumulate_adjoint"] = max(errs.get("sw_accumulate_adjoint", 0.0), e4)
@@ -625,6 +720,7 @@ def phase_kernels(projector, pose16, pose4, time_ms=cuda_time_ms):
     from xvr_tpu_torch.render import shearwarp as sw
 
     vol = projector.prepare_for_shearwarp()
+    boxes = sw.content_boxes(vol)[0]  # made once, as the render's operand carries them
     M, Wd, L = vol.shape
     records, calls = {}, []
     cases = stage_cases(projector, pose16, pose4)
@@ -648,21 +744,22 @@ def phase_kernels(projector, pose16, pose4, time_ms=cuda_time_ms):
         img = k1[:, None]
         grid_sample = partial(F.grid_sample, img, grid_n, mode="bilinear", align_corners=True)
         calls.append(dict(  # bound now: the loop variables move on
-            sw_accumulate=partial(sw.accumulate, vol, *args, Iu=Iu, Iv=Iv, eps=eps),
+            sw_accumulate=partial(sw.accumulate, vol, *args, Iu=Iu, Iv=Iv, eps=eps, boxes=boxes),
             sw_accumulate_adjoint=partial(sw.accumulate_adjoint, vol, *args, ibar, Iu=Iu,
-                                          Iv=Iv, eps=eps),
+                                          Iv=Iv, eps=eps, boxes=boxes),
             sw_warp=partial(sw.warp, k1, *warp_args),
             sw_warp_grads=partial(sw.warp_with_grads, k1, *warp_args),
             grid_sample=grid_sample,
         ))
         t = {
             "sw_accumulate": (
-                time_ms(lambda: sw.accumulate(vol, *args, Iu=Iu, Iv=Iv, eps=eps), reps),
+                time_ms(lambda: sw.accumulate(vol, *args, Iu=Iu, Iv=Iv, eps=eps, boxes=boxes), reps),
                 time_ms(lambda: sw._accumulate(vol, *args, Iu=Iu, Iv=Iv, eps=eps), 3),
                 None,
             ),
             "sw_accumulate_adjoint": (
-                time_ms(lambda: sw.accumulate_adjoint(vol, *args, ibar, Iu=Iu, Iv=Iv, eps=eps), reps),
+                time_ms(lambda: sw.accumulate_adjoint(vol, *args, ibar, Iu=Iu, Iv=Iv, eps=eps,
+                                                      boxes=boxes), reps),
                 time_ms(lambda: sw._accumulate_adjoint(vol, *args, ibar, Iu=Iu, Iv=Iv, eps=eps), 3),
                 None,
             ),
@@ -1229,8 +1326,10 @@ def phase_trainer_shearwarp(hu, aff, dev="cuda", time_ms=cuda_time_ms):
     their plain versions with bf16=False (phase_kernels' tolerances) on the
     first TRAINER_CHECKED images of each channel, eleven calls bit-identical,
     timed by CUDA events (beside one call of the plain version on all images)
-    and, on the card, torch.profiler device time, each with its bound.
-    -> name -> {"single": record, "masked": record}."""
+    and, on the card, torch.profiler device time, each with its bound; the
+    stack's content boxes against their plain version (:func:`check_content_boxes`).
+    -> name -> {"single": record, "masked": record} (``sw_content_boxes``:
+    "masked" alone)."""
     import torch
     from xvr_tpu_torch.render import _cuda
     from xvr_tpu_torch.render import shearwarp as sw
@@ -1241,6 +1340,7 @@ def phase_trainer_shearwarp(hu, aff, dev="cuda", time_ms=cuda_time_ms):
     B, R = x["uc"].shape
     n = TRAINER_CHECKED
     stack = proj.prepare_for_shearwarp()  # (C, M, Wd, L): the full density, then the labels
+    boxes, dense = sw.content_boxes(stack), whole_boxes(stack[0])
     bounds = proj.shearwarp_bounds
     vol_shape = tuple(stack.shape[1:])
     args = (x["s"], x["sgn"], x["u0"], x["du"], x["v0"], x["dv"])
@@ -1253,13 +1353,16 @@ def phase_trainer_shearwarp(hu, aff, dev="cuda", time_ms=cuda_time_ms):
     log(f"  trainer shear-warp: perm {proj.pallas_perm}, label slab bounds {bounds}, grid "
         f"{Iu}x{Iv}, B={B}, R={R}")
 
-    def acc(c, *a):
-        return sw.accumulate(stack[c], *a, k0=bounds[c][0], k1=bounds[c][1], **kw)
+    def acc(c, *a, boxes_c=None):
+        return sw.accumulate(stack[c], *a, k0=bounds[c][0], k1=bounds[c][1],
+                             boxes=boxes[c] if boxes_c is None else boxes_c, **kw)
 
-    def adj(c, *a):
-        return sw.accumulate_adjoint(stack[c], *a, k0=bounds[c][0], k1=bounds[c][1], **kw)
+    def adj(c, *a, boxes_c=None):
+        return sw.accumulate_adjoint(stack[c], *a, k0=bounds[c][0], k1=bounds[c][1],
+                                     boxes=boxes[c] if boxes_c is None else boxes_c, **kw)
 
-    out = {}
+    out = {"sw_content_boxes": {"masked": check_content_boxes(stack, "trainer stack",
+                                                             time_ms=time_ms)}}
     for variant, chans in (("single", [0]), ("masked", list(range(stack.shape[0])))):
         C = len(chans)
         tag = f"trainer {variant} B={B} det {det}^2 grid {Iu}x{Iv}"
@@ -1279,6 +1382,10 @@ def phase_trainer_shearwarp(hu, aff, dev="cuda", time_ms=cuda_time_ms):
                 1e-4 * float(r4.abs().max()), 1e-3))
             same_bits("K4 sw_accumulate_adjoint", k4, partial(adj, c, *args, ibar),
                       f"{tag} channel {c}")
+            same_as_dense("K1 sw_accumulate", lambda b: acc(c, *args, boxes_c=b), boxes[c],
+                          dense, f"{tag} channel {c}")
+            same_as_dense("K4 sw_accumulate_adjoint", lambda b: adj(c, *args, ibar, boxes_c=b),
+                          boxes[c], dense, f"{tag} channel {c}")
         # K2/K3 over the fold of the channels, as the render launches them
         If = I.reshape(C * B, Iu, Iv)
         ucf, vcf, wsf = (a.repeat(C, 1).contiguous() for a in (x["uc"], x["vc"], x["ws"]))
@@ -1313,8 +1420,14 @@ def phase_trainer_shearwarp(hu, aff, dev="cuda", time_ms=cuda_time_ms):
                 lambda: [sw._accumulate_adjoint(stack[c], *args, ibar, k0=bounds[c][0],
                                                 k1=bounds[c][1], **kw) for c in chans]),
         }
+        # K1/K4 marching every slab their geometry keeps, beside
+        dense_calls = {
+            "sw_accumulate": lambda: [acc(c, *args, boxes_c=dense) for c in chans],
+            "sw_accumulate_adjoint": lambda: [adj(c, *args, ibar, boxes_c=dense) for c in chans],
+        }
         prof = (profiler_ms({k: v[0] for k, v in calls.items()}) if dev == "cuda"
                 else dict.fromkeys(calls))
+        dprof = profiler_ms(dense_calls) if dev == "cuda" else dict.fromkeys(dense_calls)
         for name, (call, plain) in calls.items():
             per_channel = name in ("sw_accumulate", "sw_accumulate_adjoint")
             nbytes = nops = 0
@@ -1330,6 +1443,10 @@ def phase_trainer_shearwarp(hu, aff, dev="cuda", time_ms=cuda_time_ms):
                        profiler_ms=prof[name], bound_ms=max(t_bytes, t_ops),
                        bound_by="bytes" if t_bytes >= t_ops else "operations",
                        max_abs_err=errs[name], launches_per_call=C if per_channel else 1)
+            if name in dense_calls:
+                rec.update(dense_ms=time_ms(dense_calls[name], 20), dense_profiler_ms=dprof[name])
+                log(f"  time {name} [{rec['shape']}] marching every slab: kernel "
+                    f"{rec['dense_ms']:.4f} ms, device {fmt(rec['dense_profiler_ms'])}")
             log(f"  time {name} [{rec['shape']}]: kernel {rec['ms']:.4f} ms, device "
                 f"{fmt(rec['profiler_ms'])}, plain {rec['plain_ms']:.4f} ms, bound "
                 f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}: {nbytes / 1e6:.1f} MB, "
@@ -1822,7 +1939,7 @@ SW_KERNELS = ("sw_accumulate", "sw_warp", "sw_warp_grads", "sw_accumulate_adjoin
 SLAB_PATH = ("slab_forward", "slab_backward")
 # a registration's pose gradient runs back through the detector rays
 # (geometry/se3.py transform_shared), once an iteration whatever the renderer
-REGISTER_SW = (*SW_KERNELS, "rays_adjoint")
+REGISTER_SW = (*SW_KERNELS, "rays_adjoint", "sw_content_boxes")
 REGISTER_SLAB = (*SLAB_PATH, "rays_adjoint")
 
 
@@ -1912,14 +2029,16 @@ def route_launches(route) -> dict:
     target render and the re-render (K1 per channel, K2 over the fold) and
     the backward of the re-render (K3 over the fold, K4 per channel, and
     the rays' pose adjoint back to the CNN's predicted poses); the slab route
-    K5 (K7 masked) twice, K6 once and the rays' adjoint once."""
+    K5 (K7 masked) twice, K6 once and the rays' adjoint once. The shear-warp
+    operand's content boxes are made once a stratum (``Projector.prepare``),
+    whatever the mesh."""
     C = 1 + len(route["labels"] or ())
     K = len(route["strata"])
     if route["renderer"] == "trilinear_pallas":
         fwd = "slab_channels" if route["labels"] else "slab_forward"
         return {fwd: 2, "slab_backward": 1, "rays_adjoint": 1}
     return {"sw_accumulate": 2 * K * C, "sw_warp": 2 * K, "sw_warp_grads": K,
-            "sw_accumulate_adjoint": K * C, "rays_adjoint": K}
+            "sw_accumulate_adjoint": K * C, "rays_adjoint": K, "sw_content_boxes": K}
 
 
 class watched_training:
@@ -2256,7 +2375,7 @@ def rest_ray_sharded(sw_proj, pose4, kernels=SW_KERNELS, time_ms=cuda_time_ms):
     fine = sw_proj.rescale_detector(stage_cases(sw_proj, pose4, pose4)[-1][2])
     dev = fine.device
     mesh = make_mesh(4, rays=2, devices=[dev] * 4)
-    prep = fine.prepare_for_shearwarp()
+    prep = fine.prepare()
     fwd = tuple(k for k in kernels if k in ("sw_accumulate", "sw_warp"))
     out = {}
     for B in (1, 4):
@@ -2339,7 +2458,7 @@ def batch_independence(reg, gt_pose, n=12, k=8, seed=11):
                                             device=dev)
     xyz = xyz0.reshape(1, 3) + torch.tensor(rng.uniform(-2.0, 2.0, (n, 3)), dtype=torch.float32,
                                             device=dev)
-    prepared = proj.prepare_for_shearwarp()
+    prepared = proj.prepare()
     with torch.no_grad():
         gt = transform(proj(gt_pose, prepared=prepared)).expand(n, -1, -1, -1)
     cot = torch.randn((n, 1, det.height, det.width), generator=torch.Generator(dev).manual_seed(seed),
@@ -2439,7 +2558,8 @@ def rest_sharded_training(workdir: Path, card, dev="cuda", kernels=SW_KERNELS,
     mesh = make_mesh(2, devices=[dev] * 2)
     ref = Trainer(**{**cfg, "outpath": workdir / "mesh_train_ref"}, device=dev)
     tr = Trainer(**cfg, mesh=mesh, device=dev)
-    expect = {k: v * mesh.size for k, v in route_launches(tr.route()).items()}
+    expect = {k: v if k == "sw_content_boxes" else v * mesh.size
+              for k, v in route_launches(tr.route()).items()}
 
     def sync():
         if cuda:
@@ -3044,6 +3164,7 @@ def main() -> int:
             log(f"  profiler {name} [{records[name][idx]['shape']}]: device "
                 f"{'not measured' if ms is None else f'{ms:.4f} ms'} per call, CUDA events "
                 f"{records[name][idx]['ms']:.4f} ms")
+    boxes_bench = check_content_boxes(sw_proj.prepare_for_shearwarp(), "bench volume")
     log(f"kernels: all checks passed ({time.perf_counter() - t0:.1f} s)")
 
     # 4. the slices, each with the launch counts of its own run
@@ -3112,6 +3233,12 @@ def main() -> int:
     print("entry " + json.dumps({**entry_stats, "model_launches": entry_launches}), flush=True)
     print("train " + json.dumps(train_stats), flush=True)
     print("rest " + json.dumps(rest_stats), flush=True)
+    print("content_boxes " + json.dumps(dict(
+        bench_volume=boxes_bench, trainer_stack=trainer_sw["sw_content_boxes"]["masked"],
+        launches=launches["sw_content_boxes"], launches_register_model=entry_launches[
+            "sw_content_boxes"], launches_workflows=wf_launches["sw_content_boxes"],
+        launches_train_step={k: train_stats[k]["launches_per_step"].get("sw_content_boxes", 0)
+                             for k in ("masked", "unmasked")})), flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import argparse
 import importlib.util
+import inspect
 import json
 import os
 import sys
@@ -60,7 +61,7 @@ def route_k4(mode: str) -> None:
     if mode in ("plain32", "plain64"):
         dt = torch.float32 if mode == "plain32" else torch.float64
 
-        def plain(vol, s_p, sgn, u0, du, v0, dv, Ibar, **kw):
+        def plain(vol, s_p, sgn, u0, du, v0, dv, Ibar, boxes=None, **kw):
             args = [x.to(dt) for x in (s_p, sgn, u0, du, v0, dv)]
             return sw._accumulate_adjoint(vol, *args, Ibar, bf16=False, **kw).to(s_p.dtype)
 
@@ -69,7 +70,11 @@ def route_k4(mode: str) -> None:
     other = Path(mode).resolve() / "xvr_tpu_torch" / "render" / "_cuda.py"
     if not other.is_file():
         raise SystemExit(f"--k4 {mode}: no checkout of the port there")
-    sw._cuda.accumulate_adjoint = load_module("k4_checkout_cuda", other).accumulate_adjoint
+    k4 = load_module("k4_checkout_cuda", other).accumulate_adjoint
+    if "boxes" in inspect.signature(k4).parameters:
+        sw._cuda.accumulate_adjoint = k4
+    else:  # a checkout from before the content skip: its K4 marches every slab
+        sw._cuda.accumulate_adjoint = lambda vol, params, ibar, boxes, **kw: k4(vol, params, ibar, **kw)
 
 
 def register(smoke, workdir: Path, gt_pose, fids, d_rot_deg, d_xyz, renderer: str) -> dict:

@@ -68,7 +68,10 @@ def load_module(name: str, path: Path):
 class WarpLib:
     """K1, K2 and K3 of one built library, called as the port's wrappers
     call them. ``planned``: the launcher takes (threads, pixels per thread);
-    a checkout from before the launch plan takes neither."""
+    a checkout from before the launch plan takes neither. A library with
+    ``sw_content_boxes`` has K1 take the volume's content boxes (made once
+    per volume by that library) and a slab tally; one from before takes
+    neither."""
 
     def __init__(self, path: Path, planned: bool):
         import torch
@@ -76,12 +79,19 @@ class WarpLib:
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib = ctypes.CDLL(str(path))
         plan = [I, I] if planned else []
-        lib.sw_accumulate.argtypes = [P, I, I, P, P, I, I, I, F, I, I, P]
+        self.boxed = hasattr(lib, "sw_content_boxes")
+        if self.boxed:
+            lib.sw_accumulate.argtypes = [P, I, I, P, P, P, I, I, I, F, I, I, P, P]
+            lib.sw_content_boxes.argtypes = [P, I, I, I, P, P]
+            lib.sw_content_boxes.restype = I
+        else:
+            lib.sw_accumulate.argtypes = [P, I, I, P, P, I, I, I, F, I, I, P]
         lib.sw_warp.argtypes = [P, P, P, P, P, I, I, I, I, *plan, P]
         lib.sw_warp_grads.argtypes = [P, P, P, P, P, P, P, I, I, I, I, *plan, P]
         for fn in (lib.sw_accumulate, lib.sw_warp, lib.sw_warp_grads):
             fn.restype = I
         self.lib, self.planned, self.torch = lib, planned, torch
+        self.boxes = {}  # volume's address -> (its content boxes, a slab tally)
 
     def _stream(self) -> int:
         return self.torch.cuda.current_stream().cuda_stream
@@ -93,12 +103,32 @@ class WarpLib:
 
         return plan or _cuda.warp_plan(B, R, grads, _cuda.sm_count(dev))
 
+    def _content(self, vol) -> list:
+        """[] for a library from before the content skip, else the
+        arguments K1 takes for ``vol``: its content boxes, and a tally."""
+        if not self.boxed:
+            return []
+        torch = self.torch
+        M, Wd, L = vol.shape
+        key = (vol.data_ptr(), M, Wd, L)
+        if key not in self.boxes:
+            boxes = torch.empty((M, 4), dtype=torch.int32, device=vol.device)
+            err = self.lib.sw_content_boxes(vol.data_ptr(), M, Wd, L, boxes.data_ptr(),
+                                            self._stream())
+            if err:
+                raise RuntimeError(f"sw_content_boxes: CUDA error {err} at launch")
+            self.boxes[key] = (boxes, torch.zeros(2, dtype=torch.int64, device=vol.device))
+        return list(self.boxes[key])
+
     def accumulate(self, vol, params, Iu, Iv, eps=1.0):
         M, Wd, L = vol.shape
         B = params.shape[0]
         out = self.torch.empty((B, Iu, Iv), dtype=self.torch.float32, device=vol.device)
-        err = self.lib.sw_accumulate(vol.data_ptr(), Wd, L, params.data_ptr(), out.data_ptr(), B,
-                                     Iu, Iv, float(eps), 0, M, self._stream())
+        content = self._content(vol)
+        err = self.lib.sw_accumulate(
+            vol.data_ptr(), Wd, L, *(x.data_ptr() for x in content[:1]), params.data_ptr(),
+            out.data_ptr(), B, Iu, Iv, float(eps), 0, M, *(x.data_ptr() for x in content[1:]),
+            self._stream())
         if err:
             raise RuntimeError(f"sw_accumulate: CUDA error {err} at launch")
         return out

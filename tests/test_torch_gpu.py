@@ -47,7 +47,7 @@ def test_accumulate_kernel_matches_plain(cuda, eps, k0, k1, sgnval):
 
     vol, args, (Iu, Iv) = _inputs(cuda, 0, sgnval)
     kw = dict(Iu=Iu, Iv=Iv, eps=eps, k0=k0, k1=k1)
-    got = sw.accumulate(vol, *args, **kw).double()
+    got = sw.accumulate(vol, *args, boxes=sw.content_boxes(vol)[0], **kw).double()
     ref = sw._accumulate(vol, *[a.double() for a in args], bf16=False, **kw)
     torch.testing.assert_close(got, ref, rtol=2e-4, atol=2e-5 * float(ref.abs().max()))
 
@@ -59,10 +59,11 @@ def test_adjoint_kernel_matches_plain(cuda, eps, k0, k1, sgnval):
     vol, args, (Iu, Iv) = _inputs(cuda, 1, sgnval)
     ibar = torch.randn((5, Iu, Iv), generator=torch.Generator(cuda).manual_seed(2), device=cuda)
     kw = dict(Iu=Iu, Iv=Iv, eps=eps, k0=k0, k1=k1)
-    got = sw.accumulate_adjoint(vol, *args, ibar, **kw)
+    boxes = sw.content_boxes(vol)[0]
+    got = sw.accumulate_adjoint(vol, *args, ibar, boxes=boxes, **kw)
     ref = sw._accumulate_adjoint(vol, *args, ibar, bf16=False, **kw)
     torch.testing.assert_close(got, ref, rtol=1e-3, atol=1e-4 * float(ref.abs().max()))
-    assert torch.equal(got, sw.accumulate_adjoint(vol, *args, ibar, **kw))
+    assert torch.equal(got, sw.accumulate_adjoint(vol, *args, ibar, boxes=boxes, **kw))
 
 
 # Beyond the path's inputs: a tile's rows span more than one staged chunk
@@ -111,16 +112,17 @@ def test_tiled_kernels_steep_and_edge(cuda, case, eps):
 
     vol, args, (Iu, Iv) = _edge_inputs(cuda, 3, **EDGE_CASES[case])
     kw = dict(Iu=Iu, Iv=Iv, eps=eps)
-    got = sw.accumulate(vol, *args, **kw)
+    boxes = sw.content_boxes(vol)[0]
+    got = sw.accumulate(vol, *args, boxes=boxes, **kw)
     ref = sw._accumulate(vol, *[a.double() for a in args], bf16=False, **kw)
     assert float(ref.abs().max()) > 0
     torch.testing.assert_close(got.double(), ref, rtol=2e-4, atol=2e-5 * float(ref.abs().max()))
-    assert torch.equal(got, sw.accumulate(vol, *args, **kw))
+    assert torch.equal(got, sw.accumulate(vol, *args, boxes=boxes, **kw))
     ibar = torch.randn((3, Iu, Iv), generator=torch.Generator(cuda).manual_seed(4), device=cuda)
-    g = sw.accumulate_adjoint(vol, *args, ibar, **kw)
+    g = sw.accumulate_adjoint(vol, *args, ibar, boxes=boxes, **kw)
     r = sw._accumulate_adjoint(vol, *args, ibar, bf16=False, **kw)
     torch.testing.assert_close(g, r, rtol=1e-3, atol=1e-4 * float(r.abs().max()))
-    assert torch.equal(g, sw.accumulate_adjoint(vol, *args, ibar, **kw))
+    assert torch.equal(g, sw.accumulate_adjoint(vol, *args, ibar, boxes=boxes, **kw))
 
 
 @pytest.mark.parametrize("R,misaligned", [(500, False), (501, False), (501, True)])
@@ -236,11 +238,250 @@ def test_wrappers_check_their_inputs(cuda):
     from xvr_tpu_torch.render import _cuda
 
     vol = torch.zeros((4, 5, 6), device=cuda)  # float32, not bf16
+    boxes = torch.zeros((4, 4), dtype=torch.int32, device=cuda)
     with pytest.raises(TypeError, match="bfloat16"):
-        _cuda.accumulate(vol, torch.zeros((2, 8), device=cuda), Iu=8, Iv=8, eps=1.0, k0=0, k1=4)
+        _cuda.accumulate(vol, torch.zeros((2, 8), device=cuda), boxes, Iu=8, Iv=8, eps=1.0, k0=0,
+                         k1=4)
     with pytest.raises(ValueError, match="slab bounds"):
-        _cuda.accumulate(vol.bfloat16(), torch.zeros((2, 8), device=cuda), Iu=8, Iv=8, eps=1.0,
-                         k0=0, k1=9)
+        _cuda.accumulate(vol.bfloat16(), torch.zeros((2, 8), device=cuda), boxes, Iu=8, Iv=8,
+                         eps=1.0, k0=0, k1=9)
+    with pytest.raises(ValueError, match="boxes has shape"):
+        _cuda.accumulate(vol.bfloat16(), torch.zeros((2, 8), device=cuda), boxes[:3], Iu=8, Iv=8,
+                         eps=1.0, k0=0, k1=4)
+
+
+# ---------------------------------------------------------------------------
+# K1/K4's content skip: with the volume's content boxes each kernel equals
+# itself given boxes that every tile meets (no content skip), bit for bit,
+# and the slab tally's counts of the two add up.
+# ---------------------------------------------------------------------------
+
+
+def _whole(vol):
+    M, Wd, L = vol.shape
+    return torch.tensor([0, Wd - 1, 0, L - 1], dtype=torch.int32, device=vol.device).repeat(M, 1)
+
+
+def _tallied(call):
+    """-> (``call()``, the (marched, skipped) slabs it added to the tally)."""
+    from xvr_tpu_torch.render import _cuda
+
+    tally = _cuda.slab_tally(torch.device("cuda"))
+    before = tally.clone()
+    out = call()
+    return out, tuple((tally - before).tolist())
+
+
+def _skip_is_exact(vol, args, Iu, Iv, eps, ibar, k0=0, k1=None):
+    """K1 and K4 with ``vol``'s content boxes against whole-slab boxes ->
+    (K1's image, K1's (marched, skipped), K4's (marched, skipped))."""
+    from xvr_tpu_torch.render import _cuda
+    from xvr_tpu_torch.render import shearwarp as sw
+
+    boxes = sw.content_boxes(vol)[0]
+    assert torch.equal(boxes.cpu(), sw._content_boxes(vol.cpu())[0])
+    params = sw._params(*args)
+    kw = dict(eps=eps, k0=k0, k1=vol.shape[0] if k1 is None else k1)
+    ib = ibar.to(torch.bfloat16).contiguous()
+    calls = (lambda b: (_cuda.accumulate(vol, params, b, Iu=Iu, Iv=Iv, **kw),),
+             lambda b: _cuda.accumulate_adjoint(vol, params, ib, b, **kw))
+    out, counts = None, []
+    for call in calls:
+        got, (m, k) = _tallied(lambda: call(boxes))
+        dense, (md, kd) = _tallied(lambda: call(_whole(vol)))
+        assert all(torch.equal(a, b) for a, b in zip(got, dense))
+        assert kd == 0 and m + k == md, ((m, k), (md, kd))
+        out = got[0] if out is None else out
+        counts.append((m, k))
+    return out, counts[0], counts[1]
+
+
+def _body(dev, seed, M, Wd, L, pad=(0, 0, 0)):
+    """A (M, Wd, L) bf16 volume: an ellipsoid of random density in air, then
+    ``pad`` zero slabs, rows and lanes on each side."""
+    rng = np.random.default_rng(seed)
+    g = [np.linspace(-1.0, 1.0, n) for n in (M, Wd, L)]
+    X, Y, Z = np.meshgrid(*g, indexing="ij")
+    inside = (X / 0.7) ** 2 + (Y / 0.6) ** 2 + (Z / 0.65) ** 2 <= 1.0
+    vol = np.where(inside, rng.uniform(0.1, 1.0, inside.shape), 0.0)
+    vol = np.pad(vol, [(p, p) for p in pad])
+    return torch.as_tensor(vol.astype(np.float32), device=dev).to(torch.bfloat16)
+
+
+def _body_args(dev, vol, B=4, seed=5):
+    """Rays from before slab 0 (w_k = 1 on every slab) through the volume's
+    middle, slopes spanning about 0.8 of it -> (args, Iu, Iv)."""
+    M, Wd, L = vol.shape
+    rng = np.random.default_rng(seed)
+    f = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)  # noqa: E731
+    c = M + 8.0
+    s_p = np.array([-8.0, Wd / 2, L / 2]) + rng.normal(0.0, 0.5, (B, 3))
+    du, dv = 0.9 * Wd / c / 48, 0.9 * L / c / 128
+    args = (f(s_p), f(np.ones(B)), f(np.full(B, -24 * du)), f(np.full(B, du)),
+            f(np.full(B, -64 * dv)), f(np.full(B, dv)))
+    return args, 48, 128
+
+
+def _ibar(dev, B, Iu, Iv, seed=2):
+    return torch.randn((B, Iu, Iv), generator=torch.Generator(dev).manual_seed(seed), device=dev)
+
+
+@pytest.mark.parametrize("eps", [1.0, 0.25])
+def test_content_skip_body_in_air(cuda, eps):
+    vol = _body(cuda, 0, 40, 36, 48)
+    args, Iu, Iv = _body_args(cuda, vol)
+    img, (m1, k1), (m4, k4) = _skip_is_exact(vol, args, Iu, Iv, eps, _ibar(cuda, 4, Iu, Iv))
+    assert float(img.abs().max()) > 0 and k1 > 0 and k4 > 0 and m1 > 0
+
+
+@pytest.mark.parametrize("pad", [(6, 0, 0), (0, 5, 7), (3, 4, 9)], ids=["march", "across", "both"])
+def test_content_skip_padded_volume(cuda, pad):
+    """A volume padded with zeros along the march axis, across it, or both,
+    as the foundation trainer pads its subjects."""
+    vol = _body(cuda, 1, 30, 28, 40, pad=pad)
+    args, Iu, Iv = _body_args(cuda, vol)
+    img, (m1, k1), _ = _skip_is_exact(vol, args, Iu, Iv, 1.0, _ibar(cuda, 4, Iu, Iv))
+    assert float(img.abs().max()) > 0 and k1 > 0
+
+
+def test_content_skip_label_stack(cuda):
+    """The trainer's 8-channel stack (the density, then one masked copy per
+    label) over each channel's slab range; a label absent from the mask
+    gives a channel of exact zeros whose every slab is skipped."""
+    from xvr_tpu_torch.render import shearwarp as sw
+
+    vol = _body(cuda, 2, 40, 36, 48).float()
+    M, Wd, L = vol.shape
+    mask = torch.zeros((M, Wd, L), dtype=torch.int32, device=cuda)
+    for i, lab in enumerate((1, 2, 3, 4, 5, 7)):
+        mask[6 + 4 * i : 10 + 4 * i, 8 + 3 * i : 16 + 2 * i, 10 : 20 + 4 * i] = lab
+    labels = (1, 2, 3, 4, 5, 7, 9)  # 9: absent
+    stack = sw.prepare_shearwarp(vol, (0, 1, 2), mask=mask, labels=labels)
+    bounds = sw.channel_slab_bounds(mask, labels, (0, 1, 2))
+    args, Iu, Iv = _body_args(cuda, stack[0])
+    ibar = _ibar(cuda, 4, Iu, Iv)
+    for c in range(stack.shape[0]):
+        img, (m1, k1), (m4, k4) = _skip_is_exact(stack[c], args, Iu, Iv, 1.0, ibar, *bounds[c])
+        assert k1 > 0 and k4 > 0, c
+        if c == len(labels):
+            assert m1 == m4 == 0 and not bool(img.any())
+        else:
+            assert float(img.abs().max()) > 0
+
+
+@pytest.mark.parametrize("case", list(EDGE_CASES))
+def test_content_skip_steep_and_edge(cuda, case):
+    """EDGE_CASES' geometry (steep rows, wide lanes, an odd L at the edges,
+    a box read from global memory) on their volumes with zero slabs, rows
+    and lanes."""
+    vol, args, (Iu, Iv) = _edge_inputs(cuda, 3, **EDGE_CASES[case])
+    M, Wd, L = vol.shape
+    vol[M // 2 :] = 0.0
+    vol[:, Wd // 3 : Wd // 2] = 0.0
+    vol[:, :, L // 3 : L // 2] = -0.0
+    for eps in (1.0, 0.25):
+        _, (_, k1), _ = _skip_is_exact(vol, args, Iu, Iv, eps, _ibar(cuda, 3, Iu, Iv, seed=4))
+        assert k1 > 0
+
+
+@pytest.mark.parametrize("case", ["coarse B=16", "fine B=4", "trainer B=116"])
+def test_content_skip_at_the_path_shapes(cuda, case):
+    """The registration's coarse and fine shapes (the bench scene's 1336^2
+    crop projector, masked to its bone) and the trainer's 116 poses at 128^2
+    over its label stack, from chip_smoke.py's phantom at 128^3; the
+    trainer's forward render through its operand against the same stack
+    with whole-slab boxes, bit for bit."""
+    from xvr_tpu_torch.render import shearwarp as sw
+
+    smoke = _smoke()
+    hu, aff, _ = smoke.build_phantom(128)
+    if case.startswith("trainer"):
+        proj, pose = smoke.sw_trainer_inputs(hu, aff)
+        stack, bounds = proj.prepare_for_shearwarp(), proj.shearwarp_bounds
+        x = smoke.path_inputs(proj, pose, seed=3)
+        op = proj.prepare()
+        dense = sw.ShearWarpOperand(op.vol, torch.stack([_whole(v) for v in op.vol]))
+        src, tgt = proj.rays(pose)
+        a, (m, k) = _tallied(lambda: proj.render_rays(src, tgt, prepared=op))
+        b, (md, kd) = _tallied(lambda: proj.render_rays(src, tgt, prepared=dense))
+        assert torch.equal(a, b) and k > 0 and kd == 0 and m + k == md
+    else:
+        _, proj, pose16, pose4 = smoke.bench_projector(np.where(hu > 600.0, hu, -1000.0), aff)
+        fast = proj.with_shearwarp(pose16[:1])
+        label, pose, scale = next(c for c in smoke.stage_cases(fast, pose16, pose4)
+                                  if c[0] == case)
+        proj = fast.rescale_detector(scale)
+        stack, bounds = proj.prepare_for_shearwarp()[None], ((0, None),)
+        x = smoke.path_inputs(proj, pose, seed=1)
+    Iu, Iv = x["grid"]
+    args = (x["s"], x["sgn"], x["u0"], x["du"], x["v0"], x["dv"])
+    ibar = sw._warp_transpose(x["g"] * x["ws"], x["uc"], x["vc"], grid_shape=(Iu, Iv))
+    skipped = 0
+    for c in range(stack.shape[0]):
+        _, (_, k1), (_, k4) = _skip_is_exact(stack[c], args, Iu, Iv, 1.0, ibar, *bounds[c])
+        skipped += k1 + k4
+    assert skipped > 0
+
+
+@pytest.mark.parametrize("L,misaligned", [(48, False), (37, False), (48, True)])
+def test_content_boxes_kernel_matches_plain(cuda, L, misaligned):
+    """The box kernel by 16-byte loads (L % 8 == 0, aligned) and by bf16
+    loads (an odd L, or a volume 2 bytes off), on a stack with empty slabs,
+    an empty channel, single voxels on the faces and -0.0."""
+    from xvr_tpu_torch.render import shearwarp as sw
+
+    C, M, Wd = 3, 10, 20
+    rng = np.random.default_rng(9)
+    vol = rng.uniform(0.1, 1.0, (C, M, Wd, L)) * (rng.uniform(size=(C, M, Wd, L)) < 0.05)
+    vol[0, 3] = -0.0
+    vol[1] = 0.0
+    vol[2, 4] = 0.0
+    vol[2, 4, 0, L - 1] = vol[2, 4, Wd - 1, 0] = 0.5
+    host = torch.as_tensor(vol.astype(np.float32)).to(torch.bfloat16)
+    flat = torch.zeros(host.numel() + 8, dtype=torch.bfloat16, device=cuda)
+    dev = flat[1 : 1 + host.numel()] if misaligned else flat[: host.numel()]
+    dev = dev.view(C, M, Wd, L)
+    dev.copy_(host)
+    assert torch.equal(sw.content_boxes(dev).cpu(), sw._content_boxes(host))
+    assert torch.equal(sw.content_boxes(dev[2]).cpu(), sw._content_boxes(host[2]))
+
+
+def test_slab_tally_counts_graph_replays(cuda):
+    """The tally sits at one address: a CUDA graph that captured K1 and K4
+    adds their counts at every replay; ``profiling`` reads it as the
+    counters ``shearwarp.slabs_marched`` and ``.slabs_skipped`` and zeroes it
+    at ``reset``."""
+    from xvr_tpu_torch.render import _cuda
+    from xvr_tpu_torch.render import shearwarp as sw
+    from xvr_tpu_torch.utils import profiling
+
+    vol = _body(cuda, 4, 40, 36, 48)
+    args, Iu, Iv = _body_args(cuda, vol)
+    params, boxes = sw._params(*args), sw.content_boxes(vol)[0]
+    ibar = _ibar(cuda, 4, Iu, Iv).to(torch.bfloat16)
+    M = vol.shape[0]
+
+    def step():
+        I = _cuda.accumulate(vol, params, boxes, Iu=Iu, Iv=Iv, eps=1.0, k0=0, k1=M)
+        return I, _cuda.accumulate_adjoint(vol, params, ibar, boxes, eps=1.0, k0=0, k1=M)
+
+    (I0, _), once = _tallied(step)
+    assert once[1] > 0
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        I, _ = step()
+    _, twice = _tallied(lambda: (graph.replay(), graph.replay()))
+    torch.cuda.synchronize()
+    assert twice == (2 * once[0], 2 * once[1]) and torch.equal(I, I0)
+    profiling.reset()
+    _, counted = _tallied(step)
+    snap = profiling.snapshot()["counters"]
+    assert (snap["shearwarp.slabs_marched"], snap["shearwarp.slabs_skipped"]) == counted == once
 
 
 def _slab_inputs(dev, seed, B=3, R=300, M=24, Wd=20, L=28):
@@ -375,7 +616,8 @@ def test_slab_render_launches_its_kernels(cuda):
 
 
 def test_fast_render_slab_backward_launches_k6(cuda):
-    """backward="slab" pairs the shear-warp forward (K1, K2) with K6."""
+    """backward="slab" pairs the shear-warp forward (K1, K2, and the
+    content boxes of the volume it prepares) with K6."""
     from xvr_tpu_torch.geometry import Detector, convert
     from xvr_tpu_torch.render import _cuda, raymarch_trilinear_fast
 
@@ -392,7 +634,7 @@ def test_fast_render_slab_backward_launches_k6(cuda):
     (raymarch_trilinear_fast(density, affinv, src, tgt, backward="slab") ** 2).sum().backward()
     torch.cuda.synchronize()
     want = dict.fromkeys(_cuda.LAUNCHES, 0)
-    want.update(sw_accumulate=1, sw_warp=1, slab_backward=1, rays_adjoint=1)
+    want.update(sw_accumulate=1, sw_warp=1, slab_backward=1, rays_adjoint=1, sw_content_boxes=1)
     assert _cuda.LAUNCHES == want
     assert float(rot.grad.abs().sum()) > 0
 
@@ -639,7 +881,7 @@ def test_ray_sharded_fast_render_is_bit_identical(cuda, B, height):
     pose = convert(rot, xyz, "euler_angles", "ZXY", degrees=True)
     fast = proj.with_shearwarp(pose)
     assert fast.renderer == "trilinear_fast"
-    prep = fast.prepare_for_shearwarp()
+    prep = fast.prepare()
     mesh = make_mesh(4, rays=2, devices=[cuda] * 4)
     ref = fast.render_rays(*fast.rays(pose), prepared=prep)
     _cuda.reset_launches()
@@ -686,7 +928,7 @@ def test_mesh_training_step_on_the_card_matches_unsharded(cuda, tmp_path, monkey
     C = 1 + len(tr.labels)
     assert {k: v for k, v in _cuda.LAUNCHES.items() if v} == {
         "sw_accumulate": 2 * 2 * C, "sw_warp": 2 * 2, "sw_warp_grads": 2,
-        "sw_accumulate_adjoint": 2 * C, "rays_adjoint": 2}
+        "sw_accumulate_adjoint": 2 * C, "rays_adjoint": 2, "sw_content_boxes": 1}
 
 
 # ---------------------------------------------------------------------------
@@ -762,7 +1004,12 @@ def test_masked_linearized_register_model_matches_the_cpu(cuda, tmp_path, monkey
             return g
         return spy
 
-    plain = {"accumulate": sw._accumulate, "accumulate_adjoint": sw._accumulate_adjoint,
+    def every_slab(fn):  # the plain versions read every slab: the operand's boxes are not theirs
+        return lambda *a, boxes=None, **k: fn(*a, **k)
+
+    plain = {"accumulate": every_slab(sw._accumulate),
+             "accumulate_adjoint": every_slab(sw._accumulate_adjoint),
+             "content_boxes": sw._content_boxes,
              "warp": sw._warp_plain, "warp_with_grads": sw._warp_with_grads_plain}
     out = {}
     for run, dev in (("cuda", "cuda"), ("cuda_plain", "cuda"), ("cpu", "cpu")):

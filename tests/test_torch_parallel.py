@@ -35,6 +35,7 @@ from xvr_tpu_torch.parallel import (
 )
 from xvr_tpu_torch.parallel import mesh as pmesh
 from xvr_tpu_torch.render import Projector, Volume
+from xvr_tpu_torch.render.shearwarp import ShearWarpOperand
 from xvr_tpu_torch.train import Trainer
 from torch_threads import two_torch_threads  # noqa: F401
 
@@ -83,7 +84,7 @@ def sphere():
     fast = proj.replace(renderer="trilinear_fast", pallas_perm=tuple(jfast.pallas_perm))
     pose = RigidTransform(torch.tensor(np.asarray(jpose.matrix)))
     return dict(jfast=jfast, jprep=jfast.prepare_for_shearwarp(jfast.density), jpose=jpose,
-                proj=proj, fast=fast, prep=fast.prepare_for_shearwarp(), pose=pose)
+                proj=proj, fast=fast, prep=fast.prepare(), pose=pose)
 
 
 def test_make_mesh_shapes():
@@ -191,7 +192,8 @@ def test_ray_sharded_fast_render_refusals(sphere):
     mesh = make_mesh(8, devices=CPU8)
     with pytest.raises(ValueError, match="fast renderer required"):
         pmesh.ray_sharded_fast_render(mesh, sphere["proj"], sphere["pose"])
-    chans = sphere["prep"][None].expand(2, *sphere["prep"].shape)
+    vol, boxes = sphere["prep"].vol, sphere["prep"].boxes
+    chans = ShearWarpOperand(vol[None].expand(2, *vol.shape), boxes.expand(2, *boxes.shape[1:]))
     with pytest.raises(ValueError, match="single-channel"):
         pmesh.ray_sharded_fast_render(mesh, sphere["fast"], sphere["pose"], prepared=chans)
 

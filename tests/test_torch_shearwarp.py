@@ -98,7 +98,7 @@ def test_accumulate_plain_matches_jax(eps, k0, k1, sgnval):
     Iu, Iv = 16, 128
     jargs, targs = _both(_slab_inputs(3, sgnval))
     kw = dict(Iu=Iu, Iv=Iv, eps=eps, k0=k0, k1=k1)
-    got = tsw.accumulate(*targs, **kw).numpy()
+    got = tsw.accumulate(*targs, boxes=tsw.content_boxes(targs[0])[0], **kw).numpy()
     for ref in (
         np.asarray(jsw._accumulate(*jargs, unroll=4, **kw)),
         np.asarray(jsw._accumulate_fused(*jargs, unroll=4, interpret=True, **kw)),
@@ -116,7 +116,8 @@ def test_accumulate_adjoint_plain_matches_jax(eps, k0, k1, sgnval):
     ibar = np.random.default_rng(8).normal(0.0, 1.0, (5, Iu, Iv)).astype(np.float32)
     jargs, targs = _both(args)
     kw = dict(Iu=Iu, Iv=Iv, eps=eps, k0=k0, k1=k1)
-    got = tsw.accumulate_adjoint(*targs, _t(ibar), **kw).numpy()
+    got = tsw.accumulate_adjoint(*targs, _t(ibar), boxes=tsw.content_boxes(targs[0])[0],
+                                 **kw).numpy()
     for ref in (
         np.asarray(jsw._accumulate_adjoint(*jargs, jnp.asarray(ibar), unroll=4, **kw)),
         np.asarray(jsw._accumulate_adjoint_fused(*jargs, jnp.asarray(ibar), unroll=4,
@@ -291,9 +292,11 @@ def test_unported_options_raise(scene):
 
 # ---------------------------------------------------------------------------
 # A float64 model of the tiled K1/K4 march of csrc/shearwarp.cu, step by step:
-# tiles, the per-slab block-uniform skips from the tile's corner positions,
-# the staged box of rows and lanes in chunks, the lane pass and the row pass.
-# It must equal the dense plain versions, so the kernels' plan drops nothing.
+# tiles, the per-slab block-uniform skips from the tile's corner positions
+# and the slab's content box, the staged box of rows and lanes in chunks, the
+# lane pass and the row pass. It must equal the dense plain versions, so the
+# kernels' plan drops nothing, and with the content skip it must equal itself
+# without it, bit for bit.
 # ---------------------------------------------------------------------------
 
 # the kernels' constants: a (TI, TJ) tile of the slope grid per block, staged
@@ -311,13 +314,17 @@ def stage_rows(n_lanes: int, stage: tuple[int, int] = SW_STAGE) -> int:
 
 
 def _tiled_model(vol, s_p, sgn, u0, du, v0, dv, Ibar=None, *, Iu, Iv, eps, k0=0, k1=None,
-                 tile=SW_TILE, stage=SW_STAGE):
+                 tile=SW_TILE, stage=SW_STAGE, content=True):
     """-> (I (B, Iu, Iv), stats) without ``Ibar``, else ((gw, gl), stats);
     stats count what the plan met: chunks per slab, skipped slabs, valid
     samples at floor(wpos) = -1 and Wd - 1, samples with one axis out, boxes
-    too wide to stage."""
+    too wide to stage, and the slabs marched and those skipped for their
+    content (``content``: the kernels' skip by the volume's content boxes;
+    False marches every slab the geometry keeps)."""
     M, Wd, L = vol.shape
     k1 = M if k1 is None else k1
+    whole = torch.tensor([0, Wd - 1, 0, L - 1]).expand(M, 4)
+    boxes = tsw._content_boxes(vol)[0] if content else whole
     TI, TJ = tile
     f = torch.float64
     S_all = vol.to(f)
@@ -327,7 +334,8 @@ def _tiled_model(vol, s_p, sgn, u0, du, v0, dv, Ibar=None, *, Iu, Iv, eps, k0=0,
     hatp = lambda x: tsw._hat_prime(x, eps)  # noqa: E731
     out = torch.zeros((B, Iu, Iv), dtype=f)
     gw, gl = torch.zeros((B, Iu), dtype=f), torch.zeros((B, Iv), dtype=f)
-    stats = dict(max_chunks=0, skipped=0, w_first=0, w_last=0, one_axis=0, unstaged=0)
+    stats = dict(max_chunks=0, skipped=0, w_first=0, w_last=0, one_axis=0, unstaged=0,
+                 marched=0, content_skipped=0)
     for b in range(B):
         s0, s1, s2 = (s_p[b, a].item() for a in range(3))
         for i0 in range(0, Iu, TI):
@@ -356,6 +364,11 @@ def _tiled_model(vol, s_p, sgn, u0, du, v0, dv, Ibar=None, *, Iu, Iv, eps, k0=0,
                     wlo, whi = int(max(wmin, 0)), int(min(wmax + 1, Wd - 1))
                     la, lhi = int(max(lmin, 0)) & ~1, int(min(lmax + 1, L - 1))
                     npad = (lhi - la + 2) & ~1
+                    rlo, rhi, llo, lhi_c = (int(x) for x in boxes[k])
+                    if whi < rlo or wlo > rhi or la + npad - 1 < llo or la > lhi_c:
+                        stats["content_skipped"] += 1
+                        continue
+                    stats["marched"] += 1
                     rpc = stage_rows(npad, stage)
                     stats["unstaged"] += npad > stage[0]
                     # per-column and per-row flags and hats
@@ -469,6 +482,55 @@ def test_tiled_adjoint_model_matches_plain(name, geo, stage, expect):
     _check_stats(stats, expect)
     for got, ref in ((gw, rw), (gl, rl)):
         assert float(ref.abs().max()) > 0
+        torch.testing.assert_close(got, ref, rtol=1e-10, atol=1e-10 * float(ref.abs().max()))
+
+
+def _zero_regions(vol):
+    """The volume with zeros where the kernels' content skip engages: a band
+    of rows, a band of lanes (of -0.0), three whole slabs and a corner
+    block, so some tiles of every case miss the content, while every edge
+    row and lane keeps some."""
+    M, Wd, L = vol.shape
+    vol = vol.clone()
+    vol[:, Wd // 3 : Wd // 2] = 0.0
+    vol[:, :, L // 3 : L // 2] = -0.0
+    vol[M // 2 : M // 2 + 3] = 0.0
+    vol[: M // 4, Wd // 2 :, : L // 2] = 0.0
+    return vol
+
+
+@pytest.mark.parametrize("name,geo,stage,expect", MODEL_CASES, ids=[c[0] for c in MODEL_CASES])
+def test_tiled_accumulate_content_skip_is_exact(name, geo, stage, expect):
+    """K1's content skip (float64 model) on a volume with zero regions
+    equals the march without it bit for bit, and the plan counts the slabs
+    it skipped; both equal the dense plain version."""
+    vol, args, kw = _model_inputs(11, **geo)
+    vol = _zero_regions(vol)
+    got, stats = _tiled_model(vol, *args, stage=stage, **kw)
+    dense, dstats = _tiled_model(vol, *args, stage=stage, content=False, **kw)
+    assert torch.equal(got, dense)
+    assert stats["content_skipped"] > 0 and dstats["content_skipped"] == 0
+    assert stats["marched"] + stats["content_skipped"] == dstats["marched"]
+    assert stats["skipped"] == dstats["skipped"]
+    ref = tsw._accumulate(vol, *args, bf16=False, **kw)
+    assert float(ref.abs().max()) > 0
+    torch.testing.assert_close(got, ref, rtol=1e-10, atol=1e-10 * float(ref.abs().max()))
+
+
+@pytest.mark.parametrize("name,geo,stage,expect", MODEL_CASES, ids=[c[0] for c in MODEL_CASES])
+def test_tiled_adjoint_content_skip_is_exact(name, geo, stage, expect):
+    """K4's content skip (float64 model) likewise: gw and gl bit for bit."""
+    vol, args, kw = _model_inputs(12, **geo)
+    vol = _zero_regions(vol)
+    B = args[0].shape[0]
+    ibar = torch.as_tensor(np.random.default_rng(13).normal(0.0, 1.0, (B, kw["Iu"], kw["Iv"])))
+    (gw, gl), stats = _tiled_model(vol, *args, ibar, stage=stage, **kw)
+    (dw, dl), dstats = _tiled_model(vol, *args, ibar, stage=stage, content=False, **kw)
+    assert torch.equal(gw, dw) and torch.equal(gl, dl)
+    assert stats["content_skipped"] > 0
+    assert stats["marched"] + stats["content_skipped"] == dstats["marched"]
+    rw, rl = tsw._adjoint_rows(vol, *args, ibar, bf16=False, **kw)
+    for got, ref in ((gw, rw), (gl, rl)):
         torch.testing.assert_close(got, ref, rtol=1e-10, atol=1e-10 * float(ref.abs().max()))
 
 

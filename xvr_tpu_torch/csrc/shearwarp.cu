@@ -37,6 +37,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
+#include <stddef.h>
 #include <stdint.h>
 
 namespace {
@@ -104,7 +105,11 @@ __device__ __forceinline__ float bf16_bits(uint16_t x) { return __uint_as_float(
 // tile's valid samples read. Each position rounds monotonically in i and j,
 // so the tile's extremes are at its corner rows and columns. A slab is
 // skipped by the whole block when w_k == 0 or the tile's wpos range misses
-// [-1, Wd) or its lpos range misses [-1, L). Inside the tile a sample counts
+// [-1, Wd) or its lpos range misses [-1, L), or when the box misses the
+// slab's content box (its nonzero rows and lanes, sw_content_boxes): air,
+// padding and a label channel outside its label add exactly +0.0, so the
+// sums keep their bits. Each block adds the slabs it marched and those it
+// skipped for content to the launch's tally. Inside the tile a sample counts
 // only if floor(wpos) is in [-1, Wd) (a per-row flag) and floor(lpos) in
 // [-1, L) (a per-column flag), as in the plain versions.
 //
@@ -172,6 +177,12 @@ struct Smem {
   int4 box[Cfg<ADJ>::PLAN];                          // (wlo, whi, la, npad)
   float wk[Cfg<ADJ>::PLAN];
   int rpc[Cfg<ADJ>::PLAN];                           // rows per chunk
+  // The plan reads these from shared memory, so that the march holds neither
+  // in registers (the content test in a register-bound march spilled its
+  // per-slab state: PERF.md §6).
+  float4 corners;       // the tile's corner positions (ua, ub, va, vb)
+  const int4* content;  // the volume's content boxes
+  int2 tally;  // slabs marched, skipped for content: past the epilogues' exchange (below)
 };
 
 template <bool ADJ>
@@ -192,6 +203,11 @@ static_assert((Cfg<false>::KG - 1) * Cfg<false>::RPT * Cfg<false>::NT * 4 <= siz
 static_assert(((Cfg<true>::KG - 1) * 2 * Cfg<true>::RPT * Cfg<true>::NT + TI * (TJ + 1)) * 8 <=
                   sizeof(Smem<true>),
               "K4 exchange");
+static_assert((Cfg<false>::KG - 1) * Cfg<false>::RPT * Cfg<false>::NT * 4 <=
+                      offsetof(Smem<false>, tally) &&
+                  ((Cfg<true>::KG - 1) * 2 * Cfg<true>::RPT * Cfg<true>::NT + TI * (TJ + 1)) * 8 <=
+                      offsetof(Smem<true>, tally),
+              "the slab tally outlives the exchange");
 
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
@@ -216,10 +232,17 @@ __device__ __forceinline__ void group_sync() {
 }
 
 // w_k, the box of slab k and its rows per chunk for a tile whose corner
-// positions are (ua, ub) and (va, vb); whi = -1 marks a skipped slab.
-__device__ __forceinline__ void plan_slab(const SlabParams& p, int k, float ua, float ub, float va,
-                                          float vb, int Wd, int L, int4* box, float* wkp,
-                                          int* rpc) {
+// positions are (ua, ub) and (va, vb); whi = -1 marks a skipped slab. cb is
+// the slab's content box (rlo, rhi, llo, lhi): its first and last row and
+// lane that hold a nonzero value (lo > hi for a slab of zeros). The box holds
+// every tap a sample of the tile reads, so a box that misses the content's
+// rows or lanes reads zeros alone: its slab would add +0.0 to every sum, and
+// is skipped. The box is not clipped to the content, which would move the
+// chunks' boundaries. -> 1 for a marched slab, 2 for one skipped for its
+// content alone, 0 for one that w_k or the volume's bounds skip.
+__device__ __forceinline__ int plan_slab(const SlabParams& p, int k, float ua, float ub, float va,
+                                         float vb, int Wd, int L, int4 cb, int4* box, float* wkp,
+                                         int* rpc) {
   const float c = __fsub_rn((float)k, p.s0);
   const float wk = fminf(fmaxf(affine_rn(0.5f, p.sgn, c), 0.0f), 1.0f);
   const float wa = affine_rn(p.s1, c, ua), wb = affine_rn(p.s1, c, ub);
@@ -227,16 +250,21 @@ __device__ __forceinline__ void plan_slab(const SlabParams& p, int k, float ua, 
   const float wmin = floorf(fminf(wa, wb)), wmax = floorf(fmaxf(wa, wb));
   const float lmin = floorf(fminf(la, lb)), lmax = floorf(fmaxf(la, lb));
   int4 bx = make_int4(0, -1, 0, 2);
+  int plan = 0;
   if (wk != 0.0f && wmax >= -1.0f && wmin < (float)Wd && lmax >= -1.0f && lmin < (float)L) {
     bx.x = (int)fmaxf(wmin, 0.0f);
     bx.y = (int)fminf(wmax + 1.0f, (float)(Wd - 1));
     bx.z = (int)fmaxf(lmin, 0.0f) & ~1;
     const int lhi = (int)fminf(lmax + 1.0f, (float)(L - 1));
     bx.w = (lhi - bx.z + 2) & ~1;
+    const bool miss = bx.y < cb.x || bx.x > cb.y || bx.z + bx.w - 1 < cb.z || bx.z > cb.w;
+    bx.y = miss ? -1 : bx.y;
+    plan = miss ? 2 : 1;
   }
   *box = bx;
   *wkp = wk;
   *rpc = bx.w > STAGE_ELEMS ? STAGE_ROWS : min(STAGE_ROWS, STAGE_ELEMS / bx.w);
+  return plan;
 }
 
 // a box too wide to stage: the lane pass reads it from global memory
@@ -303,6 +331,7 @@ __device__ __forceinline__ void stage_chunk(uint16_t* dst, const Smem<ADJ>& sm,
 }
 
 // The march of warp group GI over its slabs of [k0, k1) (see the note above).
+// Thread 0 adds the window's slab counts to sm.tally (add_tally).
 template <bool ADJ, int GI>
 __device__ __forceinline__ void march(Smem<ADJ>& sm, Acc<ADJ>& acc, const uint16_t* __restrict__ vol,
                                       int Wd, int L, const SlabParams& p, int Iu, int Iv, float eps,
@@ -325,11 +354,19 @@ __device__ __forceinline__ void march(Smem<ADJ>& sm, Acc<ADJ>& acc, const uint16
     G.t[STAGE_ROWS * TJ + gt] = 0.0f;
     if (ADJ) G.t[TP + STAGE_ROWS * TJ + gt] = 0.0f;
   }
+  if (tid == 0) sm.corners = make_float4(ua, ub, va, vb);  // read after the window's barrier
   for (int kw = k0; kw < k1; kw += C::PLAN) {
     const int n = min(C::PLAN, k1 - kw);
     __syncthreads();  // every group is done with the previous window's plan
-    if (tid < n) plan_slab(p, kw + tid, ua, ub, va, vb, Wd, L, &sm.box[tid], &sm.wk[tid], &sm.rpc[tid]);
-    __syncthreads();
+    int plan = 0;
+    if (tid < n) {
+      const float4 cr = sm.corners;
+      plan = plan_slab(p, kw + tid, cr.x, cr.y, cr.z, cr.w, Wd, L, sm.content[kw + tid],
+                       &sm.box[tid], &sm.wk[tid], &sm.rpc[tid]);
+    }
+    const int marched = __syncthreads_count(plan == 1);
+    const int skipped = __syncthreads_count(plan == 2);
+    if (tid == 0) sm.tally = make_int2(sm.tally.x + marched, sm.tally.y + skipped);
     // ring of NS staged chunks: the loads run NS - 1 chunks ahead of the compute
     Cursor ld = first_chunk<KG, GI>(sm.box, n), cu = ld;
     for (int r = 0; r < NS - 1; ++r) {
@@ -443,12 +480,31 @@ __device__ __forceinline__ void march_group(int g, Smem<ADJ>& sm, Acc<ADJ>& acc,
   }
 }
 
+// Thread 0 at the start: the content boxes' pointer into shared memory, and
+// the block's slab counts zeroed.
+template <bool ADJ>
+__device__ __forceinline__ void start_plan(Smem<ADJ>& sm, const int4* __restrict__ content) {
+  if (threadIdx.x == 0) {
+    sm.content = content;
+    sm.tally = make_int2(0, 0);
+  }
+}
+
+// The block's slab counts (sm.tally), added once to the launch's counters
+// (tally[0] marched, tally[1] skipped for content alone) by thread 0 at the
+// end.
+__device__ __forceinline__ void add_tally(unsigned long long* __restrict__ tally, int2 t) {
+  if (t.x) atomicAdd(tally, (unsigned long long)t.x);
+  if (t.y) atomicAdd(tally + 1, (unsigned long long)t.y);
+}
+
 // K1: I[b, i, j] = sum_k w_k sum_{w,l} hat(wpos - w) hat(lpos - l) S_k[w, l]
 // The warp groups' sums of one output are added in group order.
 __global__ void __launch_bounds__(Cfg<false>::NB, Cfg<false>::MINB)
     sw_accumulate_tiled_kernel(const uint16_t* __restrict__ vol, int Wd, int L,
-                               const float* __restrict__ params, float* __restrict__ out, int Iu,
-                               int Iv, float eps, int k0, int k1, bool pairs) {
+                               const int4* __restrict__ content, const float* __restrict__ params,
+                               float* __restrict__ out, int Iu, int Iv, float eps, int k0, int k1,
+                               bool pairs, unsigned long long* __restrict__ tally) {
   using C = Cfg<false>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Smem<false>& sm = *reinterpret_cast<Smem<false>*>(smem_raw);
@@ -458,6 +514,7 @@ __global__ void __launch_bounds__(Cfg<false>::NB, Cfg<false>::MINB)
   Acc<false> acc;
 #pragma unroll
   for (int q = 0; q < C::RPT; ++q) acc.a[q] = 0.0f;
+  start_plan(sm, content);
   march_group<false>(g, sm, acc, vol, Wd, L, p, Iu, Iv, eps, k0, k1, pairs);
   if (C::KG > 1) {
     float* xch = reinterpret_cast<float*>(smem_raw);  // (KG - 1) x RPT x NT
@@ -479,6 +536,7 @@ __global__ void __launch_bounds__(Cfg<false>::NB, Cfg<false>::MINB)
     const int i = blockIdx.y * TI + ty + C::NTY * q;
     if (i < Iu && j < Iv) out[((size_t)b * Iu + i) * Iv + j] = acc.a[q];
   }
+  if (threadIdx.x == 0) add_tally(tally, sm.tally);
   // lets K2 launch once every block is here; K2 waits for this grid's
   // completion before it reads anything
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
@@ -500,9 +558,10 @@ __global__ void __launch_bounds__(Cfg<false>::NB, Cfg<false>::MINB)
 // ---------------------------------------------------------------------------
 __global__ void __launch_bounds__(Cfg<true>::NB, Cfg<true>::MINB)
     sw_adjoint_tiled_kernel(const uint16_t* __restrict__ vol, int Wd, int L,
-                            const float* __restrict__ params, const uint16_t* __restrict__ ibar,
-                            int Iu, int Iv, float eps, int k0, int k1, bool pairs,
-                            double* __restrict__ part_gw, double* __restrict__ part_gl) {
+                            const int4* __restrict__ content, const float* __restrict__ params,
+                            const uint16_t* __restrict__ ibar, int Iu, int Iv, float eps, int k0,
+                            int k1, bool pairs, double* __restrict__ part_gw,
+                            double* __restrict__ part_gl, unsigned long long* __restrict__ tally) {
   using C = Cfg<true>;
   constexpr int NT = C::NT, KG = C::KG, RPT = C::RPT, NTY = C::NTY;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -520,6 +579,7 @@ __global__ void __launch_bounds__(Cfg<true>::NB, Cfg<true>::MINB)
   Acc<true> acc;
 #pragma unroll
   for (int q = 0; q < RPT; ++q) acc.a[q] = acc.b[q] = 0.0;
+  start_plan(sm, content);
   if (__syncthreads_or(any)) {
     const SlabParams p = load_params(params, b);
     march_group<true>(g, sm, acc, vol, Wd, L, p, Iu, Iv, eps, k0, k1, pairs);
@@ -565,6 +625,7 @@ __global__ void __launch_bounds__(Cfg<true>::NB, Cfg<true>::MINB)
     for (int t = 0; t < NTY; ++t) s += red[t * (TJ + 1) + tid];
     part_gl[((size_t)b * Iv + jr) * gridDim.y + blockIdx.y] = s;
   }
+  if (tid == 0) add_tally(tally, sm.tally);
 }
 
 // out[r] = sum_t part[r, t] for n rows of nt partials.
@@ -575,6 +636,75 @@ __global__ void sw_sum_partials_kernel(const double* __restrict__ part, float* _
   double s = 0.0;
   for (int t = 0; t < nt; ++t) s += part[(size_t)r * nt + t];
   out[r] = (float)s;
+}
+
+// ---------------------------------------------------------------------------
+// The content boxes K1 and K4 skip by (plan_slab): for each of n slabs of Wd
+// rows x L lanes, the first and last row and the first and last lane that
+// hold a nonzero bf16 value, as int4 (rlo, rhi, llo, lhi); (Wd, -1, L, -1)
+// for a slab of zeros. A value is nonzero when its bits other than the sign
+// are (-0.0 is zero). One block per slab reads it once, 8 lanes a 16-byte
+// load when L % 8 == 0 and the volume is 16-byte aligned, else one bf16 a
+// load; bound by bytes (the trainer's 8-channel stack at 512^3: 2.1 GB).
+// ---------------------------------------------------------------------------
+constexpr int CB_THREADS = 512;
+
+// bits 0 and 1: whether the low and the high bf16 of a word are nonzero
+__device__ __forceinline__ unsigned nonzero_pair(unsigned w) {
+  return (unsigned)((w & 0x7fffu) != 0u) | ((unsigned)((w & 0x7fff0000u) != 0u) << 1);
+}
+
+__global__ void __launch_bounds__(CB_THREADS)
+    sw_content_boxes_kernel(const uint16_t* __restrict__ vol, int Wd, int L,
+                            int4* __restrict__ boxes, bool vec) {
+  const uint16_t* slab = vol + (size_t)blockIdx.x * Wd * L;
+  int rlo = Wd, rhi = -1, llo = L, lhi = -1;
+  if (vec) {
+    const int nq = L / 8, n = Wd * nq;
+    const uint4* q = reinterpret_cast<const uint4*>(slab);
+#pragma unroll 4
+    for (int e = threadIdx.x; e < n; e += CB_THREADS) {
+      const uint4 x = __ldg(q + e);
+      const unsigned m = nonzero_pair(x.x) | nonzero_pair(x.y) << 2 | nonzero_pair(x.z) << 4 |
+                         nonzero_pair(x.w) << 6;
+      if (m) {
+        const int r = e / nq, l = (e - r * nq) * 8;
+        rlo = min(rlo, r);
+        rhi = max(rhi, r);
+        llo = min(llo, l + __ffs(m) - 1);
+        lhi = max(lhi, l + 31 - __clz(m));
+      }
+    }
+  } else {
+    const int n = Wd * L;
+    for (int e = threadIdx.x; e < n; e += CB_THREADS) {
+      if (__ldg(slab + e) & 0x7fffu) {
+        const int r = e / L, l = e - r * L;
+        rlo = min(rlo, r);
+        rhi = max(rhi, r);
+        llo = min(llo, l);
+        lhi = max(lhi, l);
+      }
+    }
+  }
+  rlo = __reduce_min_sync(0xffffffffu, rlo);
+  rhi = __reduce_max_sync(0xffffffffu, rhi);
+  llo = __reduce_min_sync(0xffffffffu, llo);
+  lhi = __reduce_max_sync(0xffffffffu, lhi);
+  __shared__ int4 part[CB_THREADS / 32];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (lane == 0) part[warp] = make_int4(rlo, rhi, llo, lhi);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int4 bx = part[0];
+    for (int w = 1; w < CB_THREADS / 32; ++w) {
+      bx.x = min(bx.x, part[w].x);
+      bx.y = max(bx.y, part[w].y);
+      bx.z = min(bx.z, part[w].z);
+      bx.w = max(bx.w, part[w].w);
+    }
+    boxes[blockIdx.x] = bx;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -827,15 +957,28 @@ bool pairs_ok(const void* vol, int L) { return L % 2 == 0 && (uintptr_t)vol % 4 
 
 extern "C" {
 
-int sw_accumulate(const void* vol, int Wd, int L, const void* params, void* out, int B, int Iu,
-                  int Iv, float eps, int k0, int k1, void* stream) {
+// K1 and K4 take the volume's content boxes (M int4, from sw_content_boxes;
+// indexed by slab) and add their blocks' slab counts to tally (2 uint64:
+// marched, skipped for content alone).
+int sw_accumulate(const void* vol, int Wd, int L, const void* content, const void* params,
+                  void* out, int B, int Iu, int Iv, float eps, int k0, int k1, void* tally,
+                  void* stream) {
   static const cudaError_t attr = cudaFuncSetAttribute(
       sw_accumulate_tiled_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sizeof(Smem<false>));
   if (attr != cudaSuccess) return (int)attr;
   dim3 grid((Iv + TJ - 1) / TJ, (Iu + TI - 1) / TI, B);
   sw_accumulate_tiled_kernel<<<grid, Cfg<false>::NB, sizeof(Smem<false>), (cudaStream_t)stream>>>(
-      (const uint16_t*)vol, Wd, L, (const float*)params, (float*)out, Iu, Iv, eps, k0, k1,
-      pairs_ok(vol, L));
+      (const uint16_t*)vol, Wd, L, (const int4*)content, (const float*)params, (float*)out, Iu, Iv,
+      eps, k0, k1, pairs_ok(vol, L), (unsigned long long*)tally);
+  return (int)cudaGetLastError();
+}
+
+// The content boxes of n slabs of Wd x L bf16 into boxes (n int4).
+int sw_content_boxes(const void* vol, int n, int Wd, int L, void* boxes, void* stream) {
+  if (n < 1 || Wd < 1 || L < 1 || (long long)Wd * L > INT_MAX) return (int)cudaErrorInvalidValue;
+  const bool vec = L % 8 == 0 && (uintptr_t)vol % 16 == 0;
+  sw_content_boxes_kernel<<<n, CB_THREADS, 0, (cudaStream_t)stream>>>((const uint16_t*)vol, Wd, L,
+                                                                      (int4*)boxes, vec);
   return (int)cudaGetLastError();
 }
 
@@ -860,18 +1003,18 @@ int sw_adjoint_partials_shape(int Iu, int Iv, int* nbx, int* nby) {
   return 0;
 }
 
-int sw_accumulate_adjoint(const void* vol, int Wd, int L, const void* params, const void* ibar,
-                          void* part_gw, void* part_gl, void* gw, void* gl, int B, int Iu, int Iv,
-                          float eps, int k0, int k1, void* stream) {
+int sw_accumulate_adjoint(const void* vol, int Wd, int L, const void* content, const void* params,
+                          const void* ibar, void* part_gw, void* part_gl, void* gw, void* gl, int B,
+                          int Iu, int Iv, float eps, int k0, int k1, void* tally, void* stream) {
   static const cudaError_t attr = cudaFuncSetAttribute(
       sw_adjoint_tiled_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sizeof(Smem<true>));
   if (attr != cudaSuccess) return (int)attr;
   cudaStream_t st = (cudaStream_t)stream;
   dim3 grid((Iv + TJ - 1) / TJ, (Iu + TI - 1) / TI, B);
-  sw_adjoint_tiled_kernel<<<grid, Cfg<true>::NB, sizeof(Smem<true>), st>>>((const uint16_t*)vol, Wd, L, (const float*)params,
-                                               (const uint16_t*)ibar, Iu, Iv, eps, k0, k1,
-                                               pairs_ok(vol, L), (double*)part_gw,
-                                               (double*)part_gl);
+  sw_adjoint_tiled_kernel<<<grid, Cfg<true>::NB, sizeof(Smem<true>), st>>>(
+      (const uint16_t*)vol, Wd, L, (const int4*)content, (const float*)params,
+      (const uint16_t*)ibar, Iu, Iv, eps, k0, k1, pairs_ok(vol, L), (double*)part_gw,
+      (double*)part_gl, (unsigned long long*)tally);
   int err = (int)cudaGetLastError();
   if (err) return err;
   const int nw = B * Iu, nl = B * Iv;

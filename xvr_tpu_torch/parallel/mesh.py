@@ -130,12 +130,15 @@ def shard_rays(mesh: Mesh, x: torch.Tensor) -> list:
 
 
 def replicated(mesh: Mesh, x) -> list:
-    """``x`` (a tensor, a tuple or list of them, or None) on every slot's
-    device -> one per slot, copied once per distinct device."""
+    """``x`` (a tensor or a shear-warp operand, a tuple or list of them, or
+    None) on every slot's device -> one per slot, copied once per distinct
+    device."""
+    from ..render.shearwarp import ShearWarpOperand
+
     copies = {}
 
     def to(v, d):
-        if isinstance(v, torch.Tensor):
+        if isinstance(v, (torch.Tensor, ShearWarpOperand)):
             return v.to(d)
         if isinstance(v, (tuple, list)):
             return type(v)(to(e, d) for e in v)
@@ -209,7 +212,9 @@ def ray_sharded_fast_render(mesh: Mesh, projector, pose: RigidTransform, density
     otherwise the batch is replicated and the rows split over every slot,
     so that a single render (B=1) spans the whole mesh. Rows that do not
     divide the row blocks are padded with copies of the last row (their
-    integrals are dropped)."""
+    integrals are dropped). ``prepared``: the projector's
+    :meth:`~xvr_tpu_torch.render.Projector.prepare` operand, made here when
+    None."""
     from ..render import shearwarp as sw
 
     if not projector.renderer.endswith(("_fast", "_shearwarp")):
@@ -218,9 +223,8 @@ def ray_sharded_fast_render(mesh: Mesh, projector, pose: RigidTransform, density
     H, W = det.height, det.width
     B = int(pose.matrix.shape[0])
     density = projector.density if density is None else density
-    if prepared is None:
-        prepared = projector.prepare_for_shearwarp(density)
-    if prepared.ndim == 4:
+    prepared = projector.prepare(density) if prepared is None else prepared
+    if prepared.vol.ndim == 4:
         raise ValueError("ray sharding supports single-channel renders only")
     dp = mesh.shape["dp"]
     slots = mesh.devices if B % dp == 0 else mesh.devices.reshape(1, -1)

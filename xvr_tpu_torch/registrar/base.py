@@ -548,10 +548,9 @@ class RegistrarBase:
         entry = stages.pop(cfg, None)
         if entry is None:
             shared = next((e.prepared for e in stages.values()
-                           if (e.prepared.shape, e.prepared.dtype) == (prepared.shape,
-                                                                       prepared.dtype)), None)
+                           if e.prepared.vol.shape == prepared.vol.shape), None)
             entry = _Stage(cfg, rot, xyz, torch.empty_like(gt),
-                           torch.empty_like(prepared) if shared is None else shared)
+                           prepared.empty_like() if shared is None else shared)
             if len(stages) >= _MAX_STAGE_GRAPHS:
                 stages.pop(next(iter(stages)))
         stages[cfg] = entry

@@ -18,6 +18,15 @@ raises if the library reports a CUDA error, and adds one to its entry in
 :data:`LAUNCHES`. Launches made while a CUDA graph is captured are taken
 back out (:func:`captured`) and added at each replay (:func:`replayed`), so
 the counts are of kernels run.
+
+K1 and K4 also count on the device: each block adds the slabs it marched and
+those it skipped for their content (:func:`content_boxes`) to a per-device
+buffer at a fixed address (:func:`slab_tally`), so a replayed graph counts
+too. :mod:`~xvr_tpu_torch.utils.profiling` zeroes the buffers when tracing
+turns on and reads them in its snapshot (:func:`zero_tallies`,
+:func:`read_tallies`), as the counters ``shearwarp.slabs_marched`` and
+``shearwarp.slabs_skipped``. The module imports nothing of the package, so
+a script can load another checkout's copy of it on its own.
 """
 
 from __future__ import annotations
@@ -47,11 +56,14 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 LAUNCHES = {
     "sw_accumulate": 0, "sw_warp": 0, "sw_warp_grads": 0, "sw_accumulate_adjoint": 0,
     "slab_forward": 0, "slab_backward": 0, "slab_channels": 0, "slab_siddon": 0,
-    "rays_adjoint": 0,
+    "rays_adjoint": 0, "sw_content_boxes": 0,
 }
 
 _lib = None
 BUILD_INFO: dict = {}
+# device -> (2,) int64 on it: K1/K4 slabs marched, skipped for their content
+_TALLY: dict = {}
+TALLY_NAMES = ("shearwarp.slabs_marched", "shearwarp.slabs_skipped")
 
 
 def reset_launches() -> None:
@@ -78,6 +90,40 @@ def replayed(launches: dict) -> None:
     """Count one replay of a graph whose capture launched ``launches``."""
     for k, n in launches.items():
         LAUNCHES[k] += n
+
+
+def slab_tally(device) -> torch.Tensor:
+    """The (2,) int64 buffer on ``device`` that K1 and K4 add their slab
+    counts to (marched, skipped for content), made on first use, outside a
+    graph's capture, and kept at its address."""
+    device = torch.device(device)
+    if device.index is None:
+        device = torch.device(device.type, torch.cuda.current_device())
+    buf = _TALLY.get(device)
+    if buf is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("the slab tally is made by a launch outside a CUDA graph's capture")
+        buf = _TALLY[device] = torch.zeros(2, dtype=torch.int64, device=device)
+    return buf
+
+
+def zero_tallies() -> None:
+    """Zero every device's slab tally on its current stream (no sync)."""
+    for dev, buf in _TALLY.items():
+        with torch.cuda.device(dev):
+            buf.zero_()
+
+
+def read_tallies() -> dict:
+    """The slab tallies summed over the devices, read on the host (which
+    waits for each device), by :data:`TALLY_NAMES`; {} before any."""
+    if not _TALLY:
+        return {}
+    total = [0, 0]
+    for buf in _TALLY.values():
+        for i, n in enumerate(buf.tolist()):
+            total[i] += n
+    return dict(zip(TALLY_NAMES, total))
 
 
 def _nvcc() -> str:
@@ -162,11 +208,12 @@ def _load():
         return _lib
     lib = ctypes.CDLL(str(build()))
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.sw_accumulate.argtypes = [P, I, I, P, P, I, I, I, F, I, I, P]
+    lib.sw_accumulate.argtypes = [P, I, I, P, P, P, I, I, I, F, I, I, P, P]
+    lib.sw_content_boxes.argtypes = [P, I, I, I, P, P]
     lib.sw_warp.argtypes = [P, P, P, P, P, I, I, I, I, I, I, P]
     lib.sw_warp_grads.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, I, P]
     lib.sw_adjoint_partials_shape.argtypes = [I, I, ctypes.POINTER(I), ctypes.POINTER(I)]
-    lib.sw_accumulate_adjoint.argtypes = [P, I, I, P, P, P, P, P, P, I, I, I, F, I, I, P]
+    lib.sw_accumulate_adjoint.argtypes = [P, I, I, P, P, P, P, P, P, P, I, I, I, F, I, I, P, P]
     lib.slab_forward.argtypes = [P, I, I, I, P, P, I, I, P]
     lib.slab_backward.argtypes = [P, I, I, I, P, P, P, I, I, P]
     lib.slab_plane_split.argtypes = [I, I]
@@ -175,10 +222,10 @@ def _load():
     lib.slab_siddon.argtypes = [P, I, I, I, P, P, I, I, P]
     lib.rays_adjoint_blocks.argtypes = [I]
     lib.rays_adjoint.argtypes = [P, P, P, P, I, I, I, P]
-    for fn in ("sw_accumulate", "sw_warp", "sw_warp_grads", "sw_adjoint_partials_shape",
-               "sw_accumulate_adjoint", "slab_forward", "slab_backward", "slab_plane_split",
-               "slab_max_channels", "slab_channels", "slab_siddon", "rays_adjoint_blocks",
-               "rays_adjoint"):
+    for fn in ("sw_accumulate", "sw_content_boxes", "sw_warp", "sw_warp_grads",
+               "sw_adjoint_partials_shape", "sw_accumulate_adjoint", "slab_forward",
+               "slab_backward", "slab_plane_split", "slab_max_channels", "slab_channels",
+               "slab_siddon", "rays_adjoint_blocks", "rays_adjoint"):
         getattr(lib, fn).restype = I
     _lib = lib
     return lib
@@ -204,20 +251,42 @@ def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def accumulate(vol, params, *, Iu: int, Iv: int, eps: float, k0: int, k1: int) -> torch.Tensor:
+def content_boxes(vol) -> torch.Tensor:
+    """The content boxes of ``vol`` (M, Wd, L) or a stack (C, M, Wd, L),
+    bf16 -> (C, M, 4) int32 (C = 1 for a volume): per slab, the first and
+    last row and lane holding a nonzero value, (Wd, -1, L, -1) for a slab
+    of zeros."""
+    lib = _load()
+    dev = vol.device
+    stack = vol if vol.ndim == 4 else vol[None]
+    _check(stack, "vol", torch.bfloat16, tuple(stack.shape), dev)
+    C, M, Wd, L = stack.shape
+    slab_tally(dev)  # made here, where no graph is being captured
+    boxes = torch.empty((C, M, 4), dtype=torch.int32, device=dev)
+    err = lib.sw_content_boxes(stack.data_ptr(), C * M, Wd, L, boxes.data_ptr(), _stream(dev))
+    _raise_on(err, "sw_content_boxes")
+    LAUNCHES["sw_content_boxes"] += 1
+    return boxes
+
+
+def accumulate(vol, params, boxes, *, Iu: int, Iv: int, eps: float, k0: int,
+               k1: int) -> torch.Tensor:
     """K1. ``vol`` (M, Wd, L) bf16, ``params`` (B, 8) f32
-    ``[s0, s1, s2, sgn, u0, du, v0, dv]`` -> (B, Iu, Iv) f32."""
+    ``[s0, s1, s2, sgn, u0, du, v0, dv]``, ``boxes`` (M, 4) int32, the
+    volume's :func:`content_boxes` -> (B, Iu, Iv) f32."""
     lib = _load()
     dev = vol.device
     M, Wd, L = vol.shape
     B = params.shape[0]
     _check(vol, "vol", torch.bfloat16, (M, Wd, L), dev)
     _check(params, "params", torch.float32, (B, 8), dev)
+    _check(boxes, "boxes", torch.int32, (M, 4), dev)
     if not 0 <= k0 <= k1 <= M:
         raise ValueError(f"slab bounds [{k0}, {k1}) outside [0, {M}]")
     out = torch.empty((B, Iu, Iv), dtype=torch.float32, device=dev)
-    err = lib.sw_accumulate(vol.data_ptr(), Wd, L, params.data_ptr(), out.data_ptr(), B, Iu, Iv,
-                            float(eps), int(k0), int(k1), _stream(dev))
+    err = lib.sw_accumulate(vol.data_ptr(), Wd, L, boxes.data_ptr(), params.data_ptr(),
+                            out.data_ptr(), B, Iu, Iv, float(eps), int(k0), int(k1),
+                            slab_tally(dev).data_ptr(), _stream(dev))
     _raise_on(err, "sw_accumulate")
     LAUNCHES["sw_accumulate"] += 1
     return out
@@ -285,9 +354,9 @@ def warp_with_grads(I, uc, vc, ws):
     return tuple(out)
 
 
-def accumulate_adjoint(vol, params, ibar, *, eps: float, k0: int, k1: int):
-    """K4. ``ibar`` (B, Iu, Iv) bf16 -> per-row cotangent sums
-    gw (B, Iu) and gl (B, Iv), f32."""
+def accumulate_adjoint(vol, params, ibar, boxes, *, eps: float, k0: int, k1: int):
+    """K4. ``ibar`` (B, Iu, Iv) bf16, ``boxes`` as for K1 -> per-row
+    cotangent sums gw (B, Iu) and gl (B, Iv), f32."""
     lib = _load()
     dev = vol.device
     M, Wd, L = vol.shape
@@ -295,6 +364,7 @@ def accumulate_adjoint(vol, params, ibar, *, eps: float, k0: int, k1: int):
     _check(vol, "vol", torch.bfloat16, (M, Wd, L), dev)
     _check(params, "params", torch.float32, (B, 8), dev)
     _check(ibar, "ibar", torch.bfloat16, (B, Iu, Iv), dev)
+    _check(boxes, "boxes", torch.int32, (M, 4), dev)
     if not 0 <= k0 <= k1 <= M:
         raise ValueError(f"slab bounds [{k0}, {k1}) outside [0, {M}]")
     nbx, nby = ctypes.c_int(), ctypes.c_int()
@@ -304,9 +374,9 @@ def accumulate_adjoint(vol, params, ibar, *, eps: float, k0: int, k1: int):
     gw = torch.empty((B, Iu), dtype=torch.float32, device=dev)
     gl = torch.empty((B, Iv), dtype=torch.float32, device=dev)
     err = lib.sw_accumulate_adjoint(
-        vol.data_ptr(), Wd, L, params.data_ptr(), ibar.data_ptr(), part_gw.data_ptr(),
-        part_gl.data_ptr(), gw.data_ptr(), gl.data_ptr(), B, Iu, Iv, float(eps), int(k0),
-        int(k1), _stream(dev),
+        vol.data_ptr(), Wd, L, boxes.data_ptr(), params.data_ptr(), ibar.data_ptr(),
+        part_gw.data_ptr(), part_gl.data_ptr(), gw.data_ptr(), gl.data_ptr(), B, Iu, Iv,
+        float(eps), int(k0), int(k1), slab_tally(dev).data_ptr(), _stream(dev),
     )
     _raise_on(err, "sw_accumulate_adjoint")
     LAUNCHES["sw_accumulate_adjoint"] += 1

@@ -295,10 +295,14 @@ class Projector:
     def prepare(self, density: torch.Tensor | None = None):
         """The volume operand the renderer reads, permuted and cast once (hoist
         out of optimization loops; pass as ``prepared``): shear-warp's
-        :meth:`prepare_for_shearwarp`, the slab kernels' :meth:`pack_for_pallas`,
+        :meth:`prepare_for_shearwarp` with its content boxes (a
+        ``ShearWarpOperand``), the slab kernels' :meth:`pack_for_pallas`,
         None for the golden renderers, which read the density."""
         if self.kernels == "shearwarp":
-            return self.prepare_for_shearwarp(density)
+            from .shearwarp import ShearWarpOperand, content_boxes
+
+            vol = self.prepare_for_shearwarp(density)
+            return ShearWarpOperand(vol, content_boxes(vol))
         if self.kernels == "slab":
             return self.pack_for_pallas(density)
         return None

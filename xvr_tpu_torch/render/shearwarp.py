@@ -45,6 +45,17 @@ bounds. The public channels are ``[background, labels...]``: channel 0 is
 emitted as the full render minus the label sum, outside the autograd
 Function, so that autograd carries that subtraction's cotangent into it.
 
+**Content boxes.** The renderer's operand (:class:`ShearWarpOperand`,
+``Projector.prepare``) is the volume with its content boxes: per channel
+and slab, the rows and lanes that hold a nonzero bf16 value
+(:func:`content_boxes`). K1 and K4 skip a (tile, slab) pair whose staged
+box misses them: air, padding and a label channel outside its label would
+add exactly +0.0, so the renders and gradients keep their bits. The boxes
+go wherever the volume goes (every render and backward of a step, the
+registrar's graph buffers, each slot of a mesh); a bare volume passed as
+``prepared`` to the render gets them computed per call (:func:`as_operand`).
+The plain versions read every slab.
+
 ``backward="slab"`` pairs the shear-warp forward with the slab kernel's VJP
 (K6, :mod:`~xvr_tpu_torch.render.pallas`), as the JAX package's cross-check
 does (single-channel only). ``grid_bounds = (u0, du, v0, dv, sgn)``, each
@@ -58,9 +69,12 @@ they are accepted and ignored.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import numpy as np
 import torch
 
+from ..utils import profiling
 from ..utils.device import device_constant
 from ..utils.profiling import host_sync
 from . import _cuda
@@ -68,10 +82,70 @@ from .layout import _choose_permutation
 
 MAX_LANE = 1536  # slope-grid extent cap, as in the JAX package's warp
 
+# K1/K4's slab tally, read by the spans' snapshot as two counters
+profiling.add_device_counters(_cuda.zero_tallies, _cuda.read_tallies)
+
+
+@dataclass(frozen=True)
+class ShearWarpOperand:
+    """The shear-warp renderer's volume operand: the permuted bf16 volume
+    ``vol`` (M, Wd, L), or the (C, M, Wd, L) channel stack, and its
+    :func:`content_boxes` ``boxes`` (C, M, 4) int32 (C = 1 for a volume)."""
+
+    vol: torch.Tensor
+    boxes: torch.Tensor
+
+    def to(self, device) -> "ShearWarpOperand":
+        return ShearWarpOperand(self.vol.to(device), self.boxes.to(device))
+
+    def empty_like(self) -> "ShearWarpOperand":
+        """A buffer of this operand's shapes (for :meth:`copy_`)."""
+        return ShearWarpOperand(torch.empty_like(self.vol), torch.empty_like(self.boxes))
+
+    def copy_(self, other: "ShearWarpOperand") -> "ShearWarpOperand":
+        self.vol.copy_(other.vol)
+        self.boxes.copy_(other.boxes)
+        return self
+
+
+def _content_boxes(vol: torch.Tensor) -> torch.Tensor:
+    """Plain version of the content-box kernel: per slab of a (M, Wd, L)
+    volume or a (C, M, Wd, L) stack, the first and last row and lane whose
+    value is nonzero (-0.0 is zero) -> (C, M, 4) int32 ``(rlo, rhi, llo,
+    lhi)``, ``(Wd, -1, L, -1)`` for a slab of zeros."""
+    nz = (vol if vol.ndim == 4 else vol[None]) != 0
+
+    def first_last(hit):
+        n = hit.shape[-1]
+        idx = torch.arange(n, dtype=torch.int32, device=hit.device)
+        return (torch.where(hit, idx, n).amin(dim=-1),
+                torch.where(hit, idx, -1).amax(dim=-1))
+
+    rows, lanes = first_last(nz.any(dim=3)), first_last(nz.any(dim=2))
+    return torch.stack([*rows, *lanes], dim=-1).to(torch.int32)
+
+
+def content_boxes(vol: torch.Tensor) -> torch.Tensor:
+    """The content boxes of a permuted bf16 volume or channel stack (see
+    :func:`_content_boxes`): the kernel on a CUDA tensor, the plain version
+    on a CPU one."""
+    if _device_kind(vol) == "cpu":
+        return _content_boxes(vol)
+    return _cuda.content_boxes(vol.contiguous())
+
+
+def as_operand(prepared) -> ShearWarpOperand:
+    """``prepared`` as a :class:`ShearWarpOperand`; a bare permuted bf16
+    volume or stack gets its content boxes computed here."""
+    if isinstance(prepared, ShearWarpOperand):
+        return prepared
+    return ShearWarpOperand(prepared, content_boxes(prepared))
+
 
 def prepare_shearwarp(density: torch.Tensor, perm, mask=None, labels=None) -> torch.Tensor:
     """Permute a density grid to (march, window, lane) order and cast bf16.
-    O(volume): hoist out of optimization loops (``prepared=``).
+    O(volume): hoist out of optimization loops (``prepared=``, with its
+    content boxes: ``Projector.prepare``).
 
     With ``mask``/``labels``: the (C, M, Wd, L) stack, C = 1 + len(labels),
     of the FULL density (channel 0) and the per-label masked densities."""
@@ -182,14 +256,16 @@ def _accumulate(vol, s_p, sgn, u0, du, v0, dv, *, Iu: int, Iv: int, eps: float =
     return acc
 
 
-def accumulate(vol, s_p, sgn, u0, du, v0, dv, *, Iu: int, Iv: int, eps: float = 1.0,
+def accumulate(vol, s_p, sgn, u0, du, v0, dv, *, boxes, Iu: int, Iv: int, eps: float = 1.0,
                k0: int = 0, k1: int | None = None) -> torch.Tensor:
-    """K1 on CUDA tensors, :func:`_accumulate` on CPU tensors."""
+    """K1 on CUDA tensors, :func:`_accumulate` on CPU tensors. ``boxes``:
+    the volume's (M, 4) content boxes, ``content_boxes(vol)[0]`` (the plain
+    version reads every slab)."""
     if _device_kind(vol) == "cpu":
         return _accumulate(vol, s_p, sgn, u0, du, v0, dv, Iu=Iu, Iv=Iv, eps=eps, k0=k0, k1=k1)
     k1 = vol.shape[0] if k1 is None else k1
-    return _cuda.accumulate(vol, _params(s_p, sgn, u0, du, v0, dv), Iu=Iu, Iv=Iv, eps=eps,
-                            k0=k0, k1=k1)
+    return _cuda.accumulate(vol, _params(s_p, sgn, u0, du, v0, dv), boxes, Iu=Iu, Iv=Iv,
+                            eps=eps, k0=k0, k1=k1)
 
 
 # ---------------------------------------------------------------------------
@@ -252,15 +328,16 @@ def _adjoint_rows(vol, s_p, sgn, u0, du, v0, dv, Ibar, *, Iu: int, Iv: int, eps:
     return gw, gl
 
 
-def accumulate_adjoint(vol, s_p, sgn, u0, du, v0, dv, Ibar, *, Iu: int, Iv: int,
+def accumulate_adjoint(vol, s_p, sgn, u0, du, v0, dv, Ibar, *, boxes, Iu: int, Iv: int,
                        eps: float = 1.0, k0: int = 0, k1: int | None = None) -> torch.Tensor:
-    """K4 on CUDA tensors, :func:`_accumulate_adjoint` on CPU tensors."""
+    """K4 on CUDA tensors, :func:`_accumulate_adjoint` on CPU tensors;
+    ``boxes`` as for :func:`accumulate`."""
     if _device_kind(vol) == "cpu":
         return _accumulate_adjoint(vol, s_p, sgn, u0, du, v0, dv, Ibar, Iu=Iu, Iv=Iv, eps=eps,
                                    k0=k0, k1=k1)
     k1 = vol.shape[0] if k1 is None else k1
     gw, gl = _cuda.accumulate_adjoint(
-        vol, _params(s_p, sgn, u0, du, v0, dv), Ibar.to(torch.bfloat16).contiguous(),
+        vol, _params(s_p, sgn, u0, du, v0, dv), Ibar.to(torch.bfloat16).contiguous(), boxes,
         eps=eps, k0=k0, k1=k1,
     )
     return _contract_source(gw, gl, u0, du, v0, dv)
@@ -420,19 +497,20 @@ def shearwarp_grid_bounds(affine_inverse, source, target, *, perm, grid_shape):
     return u0, du, v0, dv, sgn
 
 
-def _accumulate_any(prepared, s, sgn, u0, du, v0, dv, *, Iu: int, Iv: int, eps: float,
-                    bounds=None) -> torch.Tensor:
+def _accumulate_any(prepared: ShearWarpOperand, s, sgn, u0, du, v0, dv, *, Iu: int, Iv: int,
+                    eps: float, bounds=None) -> torch.Tensor:
     """K1 over a (M, Wd, L) volume -> (B, Iu, Iv), or once per channel of a
     (C, M, Wd, L) stack, each over its slab range ``bounds[c]`` ->
     (C, B, Iu, Iv)."""
+    vol, boxes = prepared.vol, prepared.boxes
     kw = dict(Iu=Iu, Iv=Iv, eps=eps)
-    if prepared.ndim == 3:
-        return accumulate(prepared, s, sgn, u0, du, v0, dv, **kw)
-    C, M = prepared.shape[0], prepared.shape[1]
+    if vol.ndim == 3:
+        return accumulate(vol, s, sgn, u0, du, v0, dv, boxes=boxes[0], **kw)
+    C, M = vol.shape[0], vol.shape[1]
     bounds = ((0, M),) * C if bounds is None else bounds
     return torch.stack([
-        accumulate(prepared[c], s, sgn, u0, du, v0, dv, k0=int(bounds[c][0]),
-                   k1=int(bounds[c][1]), **kw)
+        accumulate(vol[c], s, sgn, u0, du, v0, dv, k0=int(bounds[c][0]), k1=int(bounds[c][1]),
+                   boxes=boxes[c], **kw)
         for c in range(C)
     ])
 
@@ -478,13 +556,13 @@ class _FastRender(torch.autograd.Function):
         s_p, d_p, wscale = _decompose(affine_inverse, source, target, perm)
         out, I = _render_fields(prepared, s_p, d_p, wscale, grid_shape, eps, chan_bounds,
                                 grid_bounds)
-        ctx.save_for_backward(prepared, affine_inverse, source, target, I)
+        ctx.save_for_backward(prepared.vol, prepared.boxes, affine_inverse, source, target, I)
         ctx.cfg, ctx.grid_bounds = cfg, grid_bounds
         return out
 
     @staticmethod
     def backward(ctx, g):
-        prepared, affine_inverse, source, target, I = ctx.saved_tensors
+        vol, boxes, affine_inverse, source, target, I = ctx.saved_tensors
         grid_shape, perm, eps, backward, chan_bounds = ctx.cfg
         Iu, Iv = grid_shape
         with torch.enable_grad():
@@ -498,7 +576,7 @@ class _FastRender(torch.autograd.Function):
 
             with torch.enable_grad():
                 fields = _fields(s_p, d_p, wscale)
-            g_fields = slab_backward(prepared, fields.detach(), g.contiguous())
+            g_fields = slab_backward(vol, fields.detach(), g.contiguous())
             g_src, g_tgt = torch.autograd.grad(fields, (src, tgt), g_fields)
             return None, None, g_src, g_tgt, None, None
         dp, ws = d_p.detach(), wscale.detach()
@@ -519,10 +597,10 @@ class _FastRender(torch.autograd.Function):
                 return x.reshape(C, B, -1).sum(dim=0)
 
             g_ws, g_uc, g_vc = csum(gf * bil), csum(gwf * dWdu), csum(gwf * dWdv)
-            cb = ((0, prepared.shape[1]),) * C if chan_bounds is None else chan_bounds
+            cb = ((0, vol.shape[1]),) * C if chan_bounds is None else chan_bounds
             g_s_scalar = sum(
-                accumulate_adjoint(prepared[c], s, sgn, u0, du, v0, dv, Ibar[c],
-                                   k0=int(cb[c][0]), k1=int(cb[c][1]), **kw)
+                accumulate_adjoint(vol[c], s, sgn, u0, du, v0, dv, Ibar[c], k0=int(cb[c][0]),
+                                   k1=int(cb[c][1]), boxes=boxes[c], **kw)
                 for c in range(C)
             )
         else:
@@ -530,7 +608,8 @@ class _FastRender(torch.autograd.Function):
             bil, dWdu, dWdv = warp_with_grads(I, uc, vc, ws)
             gw = g * ws
             Ibar = _warp_transpose(gw, uc, vc, grid_shape=grid_shape)
-            g_s_scalar = accumulate_adjoint(prepared, s, sgn, u0, du, v0, dv, Ibar, **kw)
+            g_s_scalar = accumulate_adjoint(vol, s, sgn, u0, du, v0, dv, Ibar, boxes=boxes[0],
+                                            **kw)
             g_ws, g_uc, g_vc = g * bil, gw * dWdu, gw * dWdv
         g_u = g_uc / du[:, None]
         g_v = g_vc / dv[:, None]
@@ -555,6 +634,7 @@ def _resolve(density, affine_inverse, source, target, det_shape, perm, prepared,
     perm = tuple(int(p) for p in perm)
     if prepared is None:
         prepared = prepare_shearwarp(density, perm, mask=mask, labels=labels)
+    prepared = as_operand(prepared)
     if grid_shape is None:
         if det_shape is None:
             R = target.shape[1]
@@ -620,7 +700,7 @@ def raymarch_trilinear_fast(
         density, affine_inverse, source, target, det_shape, perm, prepared, grid_shape,
         mask, labels,
     )
-    if prepared.ndim == 4 and backward == "slab":
+    if prepared.vol.ndim == 4 and backward == "slab":
         raise ValueError("backward='slab' does not support channel rendering")
     cfg = (grid_shape, perm, float(eps), backward, _bounds(chan_bounds))
     return _public_channels(

@@ -4,7 +4,8 @@
 ``with span(name):`` times a phase of the host's work and ``count(name, n)``
 adds to a counter. Both record only while tracing is on: while a
 ``torch.profiler`` session runs, or after :func:`enable`. Off, each costs a
-read of two flags and records nothing (``span`` returns one shared no-op).
+read and a compare of two flags and records nothing (``span`` returns one
+shared no-op).
 On, a span records its start and end (``perf_counter_ns``), its parent (the
 span open around it on the same thread) and its request (the innermost span
 opened with ``request=True`` on the thread: one ``run_batch``, one training
@@ -18,6 +19,12 @@ interval. A count adds to its counter's total and to the innermost open
 span's; :func:`host_sync` counts the host's waits on the card.
 :func:`snapshot` gives the totals by span name and counter and the span
 records; :func:`reset` clears them.
+
+Device counters are kept by the kernels themselves (K1/K4's slab tally,
+``render/_cuda.py``), which count whether tracing is on or not, CUDA graph
+replays included: they start again from zero when tracing turns on (found
+at the first span, count or host sync after it does) and at :func:`reset`,
+with no sync, and :func:`snapshot` reads them once, with the counters.
 
 Set ``XVR_PROFILE_DIR=/path`` to capture a ``torch.profiler`` trace of
 training steps 10-15 (after the first steps' set-up), written there as a
@@ -48,12 +55,33 @@ _request_ids = itertools.count(1)
 _totals: dict[str, list] = {}  # name -> [count, ns, self ns, {counter: n}]
 _counters: dict[str, int] = {}
 _records: list[dict] = []
+_device_counters: list = []  # (zero, read) of each set of device counters
+_window = False  # whether tracing was on at the last look
 
 
 def enable(on: bool = True) -> None:
     """Record spans and counts without a profiler (``on=False`` stops)."""
     global _enabled
     _enabled = bool(on)
+
+
+def add_device_counters(zero, read) -> None:
+    """Register counters the device keeps: ``zero()`` zeroes them without a
+    sync, ``read()`` -> {name: total} reads them on the host."""
+    _device_counters.append((zero, read))
+
+
+def _tracing() -> bool:
+    """Whether spans and counts record now; where tracing has turned on
+    since the last look, the device counters start from zero."""
+    global _window
+    on = _enabled or _autograd_profiler._is_profiler_enabled
+    if on != _window:
+        _window = on
+        if on:
+            for zero, _ in _device_counters:
+                zero()
+    return on
 
 
 _OFF = nullcontext()  # the span of tracing off
@@ -114,14 +142,14 @@ class _Span:
 def span(name: str, request: bool = False):
     """A context manager that records the block as the span ``name``;
     ``request=True`` opens a new request (a ``run_batch``, a training step)."""
-    if not (_enabled or _autograd_profiler._is_profiler_enabled):
+    if not _tracing():
         return _OFF
     return _Span(name, request)
 
 
 def count(name: str, n: int = 1) -> None:
     """Add ``n`` to the counter ``name`` (and to the innermost open span's)."""
-    if not (_enabled or _autograd_profiler._is_profiler_enabled):
+    if not _tracing():
         return
     _counters[name] = _counters.get(name, 0) + n
     stack = getattr(_local, "stack", None)
@@ -135,7 +163,7 @@ def host_sync(on, n: int = 1) -> None:
     ``host_syncs``) when ``on``, a tensor or a device, is a CUDA device's: a
     device tensor read on the host, or a copy to it from pageable host
     memory, which waits for the device's queue to drain."""
-    if not (_enabled or _autograd_profiler._is_profiler_enabled):
+    if not _tracing():
         return
     if (on.device if isinstance(on, torch.Tensor) else torch.device(on)).type == "cuda":
         count("host_syncs", n)
@@ -143,17 +171,23 @@ def host_sync(on, n: int = 1) -> None:
 
 def snapshot() -> dict:
     """-> ``spans`` {name: count, seconds, self_seconds, counters (counted
-    while it was the innermost span)}, ``counters`` {name: total} and
-    ``records`` (one per closed span, in the order they closed)."""
+    while it was the innermost span)}, ``counters`` {name: total}, the
+    device counters' among them (read after the host waits for the device),
+    and ``records`` (one per closed span, in the order they closed)."""
     spans = {k: dict(count=v[0], seconds=v[1] * 1e-9, self_seconds=v[2] * 1e-9, counters=dict(v[3]))
              for k, v in _totals.items()}
-    return dict(spans=spans, counters=dict(_counters), records=list(_records))
+    counters = dict(_counters)
+    for _, read in _device_counters:
+        counters.update(read())
+    return dict(spans=spans, counters=counters, records=list(_records))
 
 
 def reset() -> None:
     _totals.clear()
     _counters.clear()
     _records.clear()
+    for zero, _ in _device_counters:
+        zero()
 
 
 def _activities():
