@@ -40,6 +40,7 @@ from ..geometry import RigidTransform, convert
 from ..metrics.ncc import make_imagesim
 from ..render.load import initialize_drr
 from ..render import _cuda
+from ..render.layout import choose_permutation_for_pose
 from ..render.projector import Projector, kernel_upgrade_allowed
 from ..utils.profiling import count, host_sync, span
 from ..utils.transforms import make_xray_transforms
@@ -112,6 +113,25 @@ def _graphs_engage(projector: Projector, mesh, parameterization: str) -> bool:
     return (mesh is None and projector.renderer.endswith("_fast")
             and projector.device.type == "cuda"
             and parameterization not in _HOST_BOUND_PARAMETERIZATIONS)
+
+
+def _march_groups(rotations: np.ndarray, affine_inverse: np.ndarray) -> list[list[int]]:
+    """The X-rays' indices grouped by the march axis of the permutation that
+    each one's own oriented rotation gives (``rotations`` (K, 3, 3)), the
+    groups in the order of their first X-ray."""
+    groups: dict[int, list[int]] = {}
+    for k, R in enumerate(rotations):
+        groups.setdefault(choose_permutation_for_pose(R, affine_inverse)[0], []).append(k)
+    return list(groups.values())
+
+
+def _rows(t: torch.Tensor, idx: list[int]) -> torch.Tensor:
+    """The rows ``idx`` of ``t``: a view where they follow one another (every
+    batch of one march axis), else a copy of their slices (no index copied to
+    the device)."""
+    if idx == list(range(idx[0], idx[-1] + 1)):
+        return t[idx[0] : idx[-1] + 1]
+    return torch.cat([t[k : k + 1] for k in idx])
 
 
 @functools.lru_cache(maxsize=8)
@@ -646,7 +666,8 @@ class RegistrarBase:
             per_itr = (t1 - t0) / max(int(n_done.max()), 1)
             self.stage_log.append(dict(
                 stage=stage_idx, K=K, height=proj.detector.height, width=proj.detector.width,
-                renderer=proj.renderer, n_done=int(n_done.max()), seconds=t1 - t0,
+                renderer=proj.renderer, perm=proj.pallas_perm, n_done=int(n_done.max()),
+                seconds=t1 - t0,
                 ms_per_itr=per_itr * 1e3,
             ))
             for k in range(K):
@@ -678,17 +699,35 @@ class RegistrarBase:
         return self.run_batch([i2d], mncc_patch_size, gncc_patch_size, sigma, beta)[0]
 
     # ------------------------------------------------------------------
-    def _upgrade_renderer(self, scales, init_pose) -> None:
-        """Kernel selection: on a CUDA device (or with XVR_FORCE_SHEARWARP,
-        which the CPU tests set) the bare ``trilinear``/``siddon`` renderers
-        become ``{family}_fast`` when shear-warp accepts the coarse stage's
-        rays; a ``trilinear`` renderer that is left (shear-warp declined, or
-        ``XVR_NO_SHEARWARP``) becomes ``trilinear_pallas`` when the slab
-        kernels accept them. ``XVR_NO_PALLAS`` disables every upgrade."""
-        if self.renderer not in ("trilinear", "siddon") or not kernel_upgrade_allowed(self.device):
+    def _upgrades(self) -> bool:
+        """Whether :meth:`_upgrade_renderer` may choose the kernels."""
+        return self.renderer in ("trilinear", "siddon") and kernel_upgrade_allowed(self.device)
+
+    def _upgrade_renderer(self, scales, init_pose, rotations) -> None:
+        """Kernel selection, made afresh for every optimization from the
+        configured renderer (never from an earlier batch's choice): on a CUDA
+        device (or with XVR_FORCE_SHEARWARP, which the CPU tests set) the bare
+        ``trilinear``/``siddon`` renderers become ``{family}_fast`` when
+        shear-warp accepts the coarse stage's rays; a ``trilinear`` renderer
+        that is left (shear-warp declined, or ``XVR_NO_SHEARWARP``) becomes
+        ``trilinear_pallas`` when the slab kernels accept them.
+        ``XVR_NO_PALLAS`` disables every upgrade. The permutation is that of
+        the poses' mean rotation, from ``rotations`` (their oriented
+        rotations, already on the host).
+
+        The JAX package chooses once per batch from the mean rotation of all
+        its X-rays, and from the projector the previous batch left: a batch
+        whose views march different volume axes (a biplane pair) falls to
+        the golden renderer, and a batch that the steepness check declines
+        keeps the previous batch's permutation. The port gives each march axis
+        of a batch an optimization of its own (:meth:`_run_batch`) and chooses
+        here from ``self.renderer``."""
+        if not self._upgrades():
             return
+        self.projector = self.projector.replace(renderer=self.renderer, pallas_perm=None)
         if not os.environ.get("XVR_NO_SHEARWARP"):
-            coarse = self.projector.rescale_detector(scales[0]).with_shearwarp(init_pose)
+            coarse = self.projector.rescale_detector(scales[0]).with_shearwarp(
+                probe_poses=init_pose, rotations=rotations)
             if coarse.renderer.endswith("_fast"):
                 self.projector = self.projector.replace(
                     renderer=coarse.renderer,
@@ -698,7 +737,8 @@ class RegistrarBase:
                     shearwarp_remap=coarse.shearwarp_remap,
                 )
         if self.projector.renderer == "trilinear":
-            coarse = self.projector.rescale_detector(scales[0]).with_pallas(init_pose)
+            coarse = self.projector.rescale_detector(scales[0]).with_pallas(
+                probe_poses=init_pose, rotations=rotations)
             if coarse.renderer == "trilinear_pallas":
                 self.projector = self.projector.replace(
                     renderer="trilinear_pallas",
@@ -707,21 +747,14 @@ class RegistrarBase:
                 )
 
     def run_batch(self, i2ds, mncc_patch_size=9, gncc_patch_size=11, sigma=0.0, beta=0.5):
-        """Register K X-rays sharing intrinsics in ONE batched optimization.
-        Returns a list of K per-image result tuples, each shaped like a
-        :meth:`run` result."""
+        """Register K X-rays sharing intrinsics, one batched optimization per
+        march axis among their initial poses (one for every batch whose views
+        march one volume axis). Returns a list of K per-image result tuples,
+        each shaped like a :meth:`run` result, in input order."""
         with span("register.request", request=True):
             return self._run_batch(i2ds, mncc_patch_size, gncc_patch_size, sigma, beta)
 
     def _run_batch(self, i2ds, mncc_patch_size, gncc_patch_size, sigma, beta):
-        n_files = len(i2ds)
-        if (self.mesh is not None and n_files % self.mesh.size
-                and n_files * self.restart_seeds >= self.mesh.size):
-            # pad to a full set of slots with repeats of the last X-ray (their
-            # results are computed and dropped); a batch too small to fill
-            # the mesh is not padded: its renders are split by rows instead
-            pad = self.mesh.size - n_files % self.mesh.size
-            i2ds = list(i2ds) + [i2ds[-1]] * pad
         with span("register.read"):
             inits = [self.initialize_pose(i2d) for i2d in i2ds]
             intrs = [tuple(float(v) for v in x[1:6]) for x in inits]  # sdd..y0
@@ -738,24 +771,55 @@ class RegistrarBase:
             init_pose = RigidTransform(
                 torch.cat([x[7].matrix.reshape(-1, 4, 4).to(self.device) for x in inits], dim=0)
             )
-        K = gt.shape[0]
         H, W = gt.shape[-2:]
         intrinsics = dict(sdd=sdd, height=H, width=W, delx=delx, dely=dely, x0=-x0, y0=y0)
-
         scales = _parse_scales(self.scales, self.crop, H)
+        K = gt.shape[0]
+        rotations, groups = None, [list(range(K))]
         with span("register.prepare"):
             self.projector = self.projector.set_intrinsics(**intrinsics)
-            self._upgrade_renderer(scales, init_pose)
+            if self._upgrades():  # the kernels march one axis: an optimization per axis
+                rotations = self.projector.oriented_rotations(init_pose)
+                groups = _march_groups(rotations, self.projector.affine_inverse_host())
+        results = [None] * K
+        for idx in groups:
+            count("register.perm_groups")
+            out = self._optimize(_rows(gt, idx), RigidTransform(_rows(init_pose.matrix, idx)),
+                                 None if rotations is None else rotations[idx],
+                                 [pf_to_afs[k] for k in idx], intrinsics, scales,
+                                 (mncc_patch_size, gncc_patch_size, sigma, beta))
+            for k, res in zip(idx, out):
+                results[k] = res
+        return results
+
+    def _optimize(self, gt, init_pose, rotations, pf_to_afs, intrinsics, scales, imagesim_cfg):
+        """One batched optimization of the X-rays ``gt`` from ``init_pose``
+        (their oriented ``rotations`` on the host), whose views march one
+        volume axis: the renderer's choice, the optional coarse sweep, pass 1
+        and the re-anneal passes. -> one result tuple per X-ray."""
+        n = K = gt.shape[0]
+        if self.mesh is not None and K % self.mesh.size and K * self.restart_seeds >= self.mesh.size:
+            # pad to a full set of slots with repeats of the last X-ray (their
+            # results are computed and dropped); a batch too small to fill
+            # the mesh is not padded: its renders are split by rows instead
+            pad = self.mesh.size - K % self.mesh.size
+            gt = torch.cat([gt] + [gt[-1:]] * pad)
+            init_pose = RigidTransform(torch.cat([init_pose.matrix] + [init_pose.matrix[-1:]] * pad))
+            if rotations is not None:
+                rotations = np.concatenate([rotations] + [rotations[-1:]] * pad)
+            pf_to_afs = pf_to_afs + [pf_to_afs[-1]] * pad
+            K = gt.shape[0]
+        with span("register.prepare"):
+            self._upgrade_renderer(scales, init_pose, rotations)
 
         if self.init_only:
             return [
                 (gt[k : k + 1], intrinsics, self.projector.rescale_detector(scales[0]),
                  init_pose[k : k + 1], None, dict(pf_to_af=pf_to_afs[k]))
-                for k in range(K)
-            ][:n_files]
+                for k in range(n)
+            ]
 
         t0 = time.perf_counter()
-        imagesim_cfg = (mncc_patch_size, gncc_patch_size, sigma, beta)
         S = self.restart_seeds
         with span("register.prepare"):
             gt_ms = torch.repeat_interleave(gt, S, dim=0) if S > 1 else gt
@@ -895,7 +959,7 @@ class RegistrarBase:
                 (gt[k : k + 1], intrinsics, self.projector,
                  init_pose[k : k + 1], final_pose[k : k + 1], kwargs)
             )
-        return results[:n_files]
+        return results[:n]
 
     # ------------------------------------------------------------------
     def register_files(self, i2ds, outpath, mncc_patch_size: int = 9, gncc_patch_size: int = 11,

@@ -158,26 +158,36 @@ class Projector:
     def rescale_detector(self, scale: float) -> "Projector":
         return self.replace(detector=self.detector.rescale(scale))
 
-    def _mean_pose_R(self, reference_pose) -> np.ndarray:
+    def oriented_rotations(self, pose: RigidTransform) -> np.ndarray:
+        """The rotations of the oriented poses, (K, 3, 3) float64 on the host:
+        one read of the device."""
+        oriented = self._oriented(_batched(pose))
+        host_sync(oriented.R)
+        return oriented.R.detach().cpu().double().numpy().reshape(-1, 3, 3)
+
+    def _mean_pose_R(self, reference_pose, rotations=None) -> np.ndarray:
         """Mean rotation of the oriented reference poses (the orientation's
-        own rotation without one), on the host."""
+        own rotation without one), on the host; of ``rotations`` instead,
+        where given, the oriented rotations :meth:`oriented_rotations` read
+        already, which are not read again."""
+        if rotations is not None:
+            return np.asarray(rotations).reshape(-1, 3, 3).mean(axis=0)
         if reference_pose is not None:
-            oriented = self._oriented(_batched(reference_pose))
-            host_sync(oriented.R)
-            return oriented.R.detach().cpu().double().numpy().reshape(-1, 3, 3).mean(axis=0)
+            return self.oriented_rotations(reference_pose).mean(axis=0)
         return orientation_transform(self.volume.orientation, device="cpu").R.numpy()
 
     def with_pallas(self, reference_pose=None, window: int | None = None,
-                    probe_poses=None) -> "Projector":
+                    probe_poses=None, rotations=None) -> "Projector":
         """Switch the trilinear renderer to the slab kernels
         (``trilinear_pallas``), fixing the volume-axis permutation from a
         representative pose. Returns ``self`` unchanged when probe rays
         (``probe_poses``, else the reference pose) exceed 45 degrees of the
         march axis (steepness > 1.2), where one sample per march plane
         undersamples, as the JAX package does. ``window`` is kept when
-        given; the GPU kernels have no gather window to measure."""
-        perm = choose_permutation_for_pose(self._mean_pose_R(reference_pose),
-                                           self.affine_inverse_host())
+        given; the GPU kernels have no gather window to measure.
+        ``rotations`` stands for the reference pose's oriented rotations."""
+        Ainv = self.affine_inverse_host()
+        perm = choose_permutation_for_pose(self._mean_pose_R(reference_pose, rotations), Ainv)
         proj = self.replace(
             renderer="trilinear_pallas",
             pallas_perm=perm,
@@ -186,7 +196,7 @@ class Projector:
         probes = probe_poses if probe_poses is not None else reference_pose
         if probes is not None:
             src, tgt = proj.rays_host(probes)
-            if measured_steepness(src, tgt, proj.affine_inverse_host(), perm) > 1.2:
+            if measured_steepness(src, tgt, Ainv, perm) > 1.2:
                 print(
                     "with_pallas: rays exceed 45deg of the march axis; "
                     "keeping the golden renderer",
@@ -216,6 +226,7 @@ class Projector:
         grid_shape: tuple[int, int] | None = None,
         quantum: int = 8,
         flavor: str | None = None,
+        rotations=None,
     ) -> "Projector":
         """Switch to the shear-warp renderer (``{flavor}_fast`` when
         ``differentiable``, else the forward-only ``{flavor}_shearwarp``),
@@ -223,13 +234,14 @@ class Projector:
         Returns ``self`` unchanged when probe rays exceed ~70 degrees of the
         march axis (steepness > 2.8), as the JAX package does. With a labelmap
         the label channels' slab ranges are fixed here (``shearwarp_bounds``).
-        The GPU warp needs no gather window, so none is measured."""
+        The GPU warp needs no gather window, so none is measured.
+        ``rotations`` stands for the reference pose's oriented rotations."""
         if flavor is None:
             flavor = "siddon" if self.renderer.startswith("siddon") else "trilinear"
         if flavor not in ("trilinear", "siddon"):
             raise ValueError(f"unknown shear-warp flavor {flavor!r}")
-        perm = choose_permutation_for_pose(self._mean_pose_R(reference_pose),
-                                           self.affine_inverse_host())
+        Ainv = self.affine_inverse_host()
+        perm = choose_permutation_for_pose(self._mean_pose_R(reference_pose, rotations), Ainv)
         chan_bounds = None
         if self.labels is not None and self.volume.mask is not None:
             from .shearwarp import channel_slab_bounds
@@ -246,7 +258,7 @@ class Projector:
         probes = probe_poses if probe_poses is not None else reference_pose
         if probes is not None:
             src, tgt = proj.rays_host(probes)
-            if measured_steepness(src, tgt, proj.affine_inverse_host(), perm) > 2.8:
+            if measured_steepness(src, tgt, Ainv, perm) > 2.8:
                 print(
                     "with_shearwarp: rays exceed ~70deg of the march axis; "
                     "keeping the golden renderer",
